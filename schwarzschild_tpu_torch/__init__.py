@@ -1,0 +1,35 @@
+"""schwarzschild_tpu_torch — the Schwarzschild raytracer on PyTorch + CUDA.
+
+The PyTorch counterpart of the JAX package ``schwarzschild_tpu``, module
+for module, with the two geodesic march kernels written by hand in CUDA
+C++ for Hopper (csrc/).  Tensors keep the JAX package's layouts; every
+function works on the device its inputs are on.  On a CPU tensor the march
+wrappers run their plain PyTorch versions; on a CUDA tensor they launch the
+kernels, which are built with nvcc at first use.
+"""
+
+from .config import CURVED, FLAT, HALF_HEIGHT, HALF_WIDTH, RenderConfig
+from .camera import Camera, look_at, make_camera
+from .scene import (
+    Box,
+    Disk,
+    HollowDisk,
+    LateralCylinder,
+    Light,
+    Material,
+    Plane,
+    Rectangle,
+    Scene,
+    Sphere,
+    build_scene,
+    empty_scene,
+    to_device,
+)
+from .intersect import Hit, intersect_scene
+from .render import save_png, to_uint8
+from .shading import get_background, shade
+from .textures import Texture, TextureStack, from_array, load_texture, stack_textures
+from .kernel import render_horizon_sky
+from .kernel_scene import render_fast, render_fast_auto
+
+__version__ = "0.1.0"

@@ -1,0 +1,73 @@
+"""State carried over from the JAX package.
+
+Each function takes one of the JAX package's objects with its array leaves
+already turned into numpy arrays by the caller (for example
+``jax.tree.map(np.asarray, scene)``) and returns this package's twin, field
+by field, with the same shapes and dtypes.  Nothing here imports jax: the
+objects are read by attribute name only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .camera import Camera
+from .config import RenderConfig
+from .scene import (
+    BoxesSoA,
+    CylindersSoA,
+    DisksSoA,
+    HollowDisksSoA,
+    LightsSoA,
+    MaterialsSoA,
+    PlanesSoA,
+    RectanglesSoA,
+    Scene,
+    SpheresSoA,
+)
+from .textures import Texture, TextureStack
+
+_SCENE_PARTS = (MaterialsSoA, LightsSoA, SpheresSoA, PlanesSoA, DisksSoA,
+                HollowDisksSoA, CylindersSoA, RectanglesSoA, BoxesSoA)
+
+
+def _tensor(x, device):
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def _fields(cls, src, device):
+    return cls(*(_tensor(getattr(src, f), device) for f in cls._fields))
+
+
+def scene(src, device=None) -> Scene:
+    return Scene(*(_fields(cls, getattr(src, name), device)
+                   for name, cls in zip(Scene._fields, _SCENE_PARTS)))
+
+
+def camera(src, device=None) -> Camera:
+    return _fields(Camera, src, device)
+
+
+def _no_mips(src):
+    if len(getattr(src, "mips", ())):
+        raise NotImplementedError(
+            "mip levels (trilinear filtering) are not available in "
+            "schwarzschild_tpu_torch")
+
+
+def texture(src, device=None) -> Texture:
+    _no_mips(src)
+    return _fields(Texture, src, device)
+
+
+def texture_stack(src, device=None) -> TextureStack:
+    _no_mips(src)
+    return _fields(TextureStack, src, device)
+
+
+def render_config(src) -> RenderConfig:
+    return RenderConfig(**{f.name: getattr(src, f.name)
+                           for f in dataclasses.fields(RenderConfig)})

@@ -1,0 +1,116 @@
+"""Vector and frame math (counterpart of ``schwarzschild_tpu.geometry``).
+
+Conventions match the JAX package: right-handed, y-up world; a frame
+("axes") is a 3x3 matrix whose COLUMNS are (right, up, forward).  Every
+function broadcasts over leading batch dimensions of torch tensors.
+
+Three-component sums are written out left to right, ``(a0 + a1) + a2``,
+which is the order XLA's reduction takes, so results do not depend on how
+torch vectorises a reduction over a dimension of three.
+"""
+
+from __future__ import annotations
+
+import torch
+
+EPSILON = 1e-7  # black_hole.frag:30
+
+
+def _sum3(x):
+    return x[..., 0] + x[..., 1] + x[..., 2]
+
+
+def true_div(a, b):
+    """``a / b`` rounded once on every device.  Given a Python number as the
+    divisor, torch's CUDA kernel multiplies by the number's rounded
+    reciprocal instead, which moves results by an ulp."""
+    if not isinstance(b, torch.Tensor):
+        b = torch.tensor(b, dtype=a.dtype, device=a.device)
+    return a / b
+
+
+def mat_vec(m, v):
+    """``m @ v`` batched: m (..., 3, 3), v (..., 3) -> (..., 3)."""
+    return _sum3(m * v[..., None, :])
+
+
+def mat_tvec(m, v):
+    """``m.T @ v`` batched: m (..., 3, 3), v (..., 3) -> (..., 3)."""
+    p = m * v[..., :, None]
+    return p[..., 0, :] + p[..., 1, :] + p[..., 2, :]
+
+
+def dot(a, b):
+    p = a * b
+    if p.shape[-1] == 3:
+        return _sum3(p)
+    return p.sum(-1)
+
+
+def cross(a, b):
+    """``jnp.cross`` component order: (a1 b2 - a2 b1, a2 b0 - a0 b2,
+    a0 b1 - a1 b0)."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def length(v):
+    return torch.sqrt(dot(v, v))
+
+
+def normalize(v):
+    return v / length(v)[..., None]
+
+
+def safe_length(v, eps=1e-24):
+    """|v| as sqrt(max(v.v, eps)) (geometry.py:102-117 of the JAX package)."""
+    return torch.sqrt(torch.clamp_min(dot(v, v), eps))
+
+
+def safe_normalize(v, eps=1e-24):
+    """``v * rsqrt(max(v.v, eps))``; the reciprocal is ``1 / sqrt`` because
+    an approximate rsqrt would move the result by an ulp."""
+    return v * (1.0 / torch.sqrt(torch.clamp_min(dot(v, v), eps)))[..., None]
+
+
+def square_vector(v):
+    return dot(v, v)
+
+
+def reflect(incident, normal):
+    """GLSL ``reflect``: I - 2*dot(N, I)*N."""
+    return incident - 2.0 * dot(normal, incident)[..., None] * normal
+
+
+def quat_to_axes(q):
+    """Unit quaternion (w, x, y, z) -> column frame (``glm::toMat3``)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                         2 * (x * z + w * y)], -1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                         2 * (y * z - w * x)], -1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                         1 - 2 * (x * x + y * y)], -1),
+        ],
+        dim=-2,
+    )
+
+
+def angle_axis(angle, axis):
+    """Quaternion (w, x, y, z) from angle and axis (``glm::angleAxis``)."""
+    axis = normalize(torch.as_tensor(axis, dtype=torch.float32))
+    half = torch.as_tensor(angle / 2.0, dtype=torch.float32)
+    s = torch.sin(half)
+    return torch.cat([torch.cos(half)[..., None], axis * s[..., None]], dim=-1)
+
+
+def min_positive(n1, n2):
+    """Smallest positive of two numbers, -1 if neither is positive
+    (black_hole.frag:441-454)."""
+    both = (n1 > 0) & (n2 > 0)
+    return torch.where(both, torch.minimum(n1, n2),
+                       torch.where(n1 > 0, n1, torch.where(n2 > 0, n2, -1.0)))

@@ -1,0 +1,389 @@
+"""Horizon + sky march and frame (counterpart of ``schwarzschild_tpu.kernel``).
+
+``march_bh`` is the wrapper of the CUDA kernel ``march_bh_kernel``
+(csrc/march.cu), which replaces the Pallas kernel ``_march_kernel``.  On a
+CUDA tensor it launches the kernel (or raises); on a CPU tensor it runs
+``march_bh_torch``, the plain version: the same per-ray arithmetic as the
+kernel, one step at a time over whole tensors.  ``render_horizon_sky`` is
+the BASELINE config-2 frame around it.
+
+The march helpers below are shared with ``kernel_scene`` as
+csrc/march_common.cuh is shared by both CUDA kernels.  Divisions by a
+Python number go through ``geo.true_div`` so that the plain version rounds
+like the kernel on the GPU too.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _ext
+from . import camera as cam_mod
+from . import geometry as geo
+from . import physics
+from .config import FLAT, HALF_HEIGHT, HALF_WIDTH, RenderConfig
+from .render import glsl_rand, pixel_hash_rand, tile_hash_rand
+from .shading import CROSSHAIR_COLOR, crosshair_mask, get_background
+from .textures import Texture
+
+STATUS_MARCHING = 0.0
+STATUS_CAPTURED = 1.0
+STATUS_ESCAPED = 2.0
+
+
+# ---------------------------------------------------------------------------
+# Plain march arithmetic (the kernels' math on whole tensors).
+# ---------------------------------------------------------------------------
+
+
+def march_scalars(cfg: RenderConfig):
+    """(max_angle, u_f, far_r2) as the kernels get them: computed in double
+    and rounded to f32 once, as JAX rounds the Python floats."""
+    rf = 1.0 / cfg.u_f
+    return (float(np.float32(cfg.max_angle)), float(np.float32(cfg.u_f)),
+            float(np.float32(rf * rf)))
+
+
+def _dot3(ax, ay, az, bx, by, bz):
+    return ax * bx + ay * by + az * bz
+
+
+def _rnorm(x, y, z):
+    return 1.0 / torch.sqrt(torch.clamp_min(x * x + y * y + z * z, 1e-20))
+
+
+def _len3(x, y, z):
+    return torch.sqrt(torch.clamp_min(x * x + y * y + z * z, 1e-20))
+
+
+def _guard(x):
+    return torch.where(torch.abs(x) < 1e-12, 1e-12, x)
+
+
+def _tangent_of(nx, ny, nz, dx, dy, dz):
+    """normalize(cross(cross(n, d), n)) in jnp.cross's component order."""
+    cx = ny * dz - nz * dy
+    cy = nz * dx - nx * dz
+    cz = nx * dy - ny * dx
+    tx = cy * nz - cz * ny
+    ty = cz * nx - cx * nz
+    tz = cx * ny - cy * nx
+    inv = _rnorm(tx, ty, tz)
+    return tx * inv, ty * inv, tz * inv
+
+
+def _sphere_entry(px, py, pz, dx, dy, dz, r2, cx=None, cy=None, cz=None):
+    """First positive lambda of a sphere (centre c, default the origin)."""
+    if cx is not None:
+        px, py, pz = px - cx, py - cy, pz - cz
+    d_oc = _dot3(dx, dy, dz, px, py, pz)
+    oc2 = _dot3(px, py, pz, px, py, pz)
+    disc = d_oc * d_oc - oc2 + r2
+    sq = torch.sqrt(torch.clamp_min(disc, 1e-20))
+    lam = geo.min_positive(-d_oc - sq, -d_oc + sq)
+    return (disc >= 0.0) & (lam >= 0.0), lam
+
+
+def _init_march(origin, direction, active):
+    """Orbital-plane init (frag:865, 883-887) as a dict of planes."""
+    ox, oy, oz = origin.unbind(-1)
+    dx, dy, dz = direction.unbind(-1)
+    inv = _rnorm(ox, oy, oz)
+    nx, ny, nz = ox * inv, oy * inv, oz * inv
+    tx, ty, tz = _tangent_of(nx, ny, nz, dx, dy, dz)
+    nd0 = _dot3(nx, ny, nz, dx, dy, dz)
+    dt0 = _dot3(tx, ty, tz, dx, dy, dz)
+    return dict(px=ox, py=oy, pz=oz, dx=dx, dy=dy, dz=dz,
+                nx=nx, ny=ny, nz=nz, tx=tx, ty=ty, tz=tz,
+                u=inv, du=-inv * nd0 / _guard(dt0),
+                phi=torch.zeros_like(inv),
+                status=torch.where(active, STATUS_MARCHING, STATUS_ESCAPED),
+                live=active.clone())
+
+
+def _far_field(s, u_f, far_r2):
+    """Far-field rule (frag:891-912): re-enter live rays with u < u_f at the
+    r = 1/u_f sphere (in place) and return the rays that finish flat."""
+    ff = s["live"] & (s["u"] < u_f)
+    big_ok, big_lam = _sphere_entry(s["px"], s["py"], s["pz"],
+                                    s["dx"], s["dy"], s["dz"], far_r2)
+    hx = s["px"] + big_lam * s["dx"]
+    hy = s["py"] + big_lam * s["dy"]
+    hz = s["pz"] + big_lam * s["dz"]
+    inv_h = _rnorm(hx, hy, hz)
+    nnx, nny, nnz = hx * inv_h, hy * inv_h, hz * inv_h
+    nd = _dot3(nnx, nny, nnz, s["dx"], s["dy"], s["dz"])
+    radial = torch.abs(nd) >= 1.0 - geo.EPSILON
+    finish = ff & (~big_ok | radial)
+    reinit = ff & big_ok & ~radial
+    ntx, nty, ntz = _tangent_of(nnx, nny, nnz, s["dx"], s["dy"], s["dz"])
+    dt = _dot3(ntx, nty, ntz, s["dx"], s["dy"], s["dz"])
+    new = dict(nx=nnx, ny=nny, nz=nnz, tx=ntx, ty=nty, tz=ntz, u=inv_h,
+               du=-inv_h * nd / _guard(dt))
+    for k, v in new.items():
+        s[k] = torch.where(reinit, v, s[k])
+    return finish
+
+
+def _rk4_segment(s, i, r_s, max_steps, max_angle):
+    """One RK4 step (frag:914-919) and its Cartesian segment
+    (frag:924-928)."""
+    step = geo.true_div(max_angle - s["phi"], float(max_steps - i))
+    phi = s["phi"] + step
+    d_u, d_du = physics.rk4_step(s["u"], s["du"], step, r_s)
+    u1 = s["u"] + d_u
+    du1 = s["du"] + d_du
+    inv_u = 1.0 / torch.clamp_min(u1, 1e-6)
+    c, sn = torch.cos(phi), torch.sin(phi)
+    npx = (c * s["nx"] + sn * s["tx"]) * inv_u
+    npy = (c * s["ny"] + sn * s["ty"]) * inv_u
+    npz = (c * s["nz"] + sn * s["tz"]) * inv_u
+    ddx, ddy, ddz = npx - s["px"], npy - s["py"], npz - s["pz"]
+    seg_len = _len3(ddx, ddy, ddz)
+    inv_seg = _rnorm(ddx, ddy, ddz)
+    return dict(px=npx, py=npy, pz=npz,
+                dx=ddx * inv_seg, dy=ddy * inv_seg, dz=ddz * inv_seg,
+                u=u1, du=du1, phi=phi), seg_len
+
+
+def _advance(s, moved, seg):
+    for k, v in seg.items():
+        s[k] = torch.where(moved, v, s[k])
+
+
+def _final_status(s):
+    """Rays still marching after max_steps escape to the sky (frag:935)."""
+    return torch.where(s["live"], STATUS_ESCAPED, s["status"])
+
+
+def _f32(x, device):
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def march_bh_torch(origin, direction, active, r_s, cfg: RenderConfig):
+    """Plain version of the horizon + sky march: (final_dir, status)."""
+    r_s = _f32(r_s, origin.device)
+    rs2 = r_s * r_s
+    max_angle, u_f, far_r2 = march_scalars(cfg)
+    s = _init_march(origin, direction, active)
+    for i in range(cfg.max_steps):
+        if not bool(s["live"].any()):
+            break  # every later step is the identity
+        live = s["live"]
+        finish = _far_field(s, u_f, far_r2)
+        bh_hit, _ = _sphere_entry(s["px"], s["py"], s["pz"],
+                                  s["dx"], s["dy"], s["dz"], rs2)
+        status = torch.where(finish, torch.where(bh_hit, STATUS_CAPTURED,
+                                                 STATUS_ESCAPED), s["status"])
+        live = live & ~finish
+        seg, seg_len = _rk4_segment(s, i, r_s, cfg.max_steps, max_angle)
+        escaped = live & (seg["u"] < 0.0)
+        status = torch.where(escaped, STATUS_ESCAPED, status)
+        live = live & ~escaped
+        cap_ok, cap_lam = _sphere_entry(s["px"], s["py"], s["pz"],
+                                        seg["dx"], seg["dy"], seg["dz"], rs2)
+        captured = live & cap_ok & (cap_lam <= seg_len)
+        status = torch.where(captured, STATUS_CAPTURED, status)
+        live = live & ~captured
+        _advance(s, live | captured, seg)
+        s["status"], s["live"] = status, live
+    return torch.stack([s["dx"], s["dy"], s["dz"]], -1), _final_status(s)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper.
+# ---------------------------------------------------------------------------
+
+
+def check_rays(origin, direction, active):
+    """The march wrappers' input contract: (..., 3) float32 origin and
+    direction and a bool ``active`` of the leading shape, contiguous, on one
+    device."""
+    if origin.dtype != torch.float32 or direction.dtype != torch.float32:
+        raise TypeError("origin and direction must be float32")
+    if active.dtype != torch.bool:
+        raise TypeError("active must be a bool tensor")
+    if (origin.shape != direction.shape or origin.shape[-1:] != (3,)
+            or origin.shape[:-1] != active.shape):
+        raise ValueError(
+            f"shapes: origin {tuple(origin.shape)}, direction "
+            f"{tuple(direction.shape)}, active {tuple(active.shape)}")
+    if not (origin.device == direction.device == active.device):
+        raise ValueError("origin, direction and active must share a device")
+    if not (origin.is_contiguous() and direction.is_contiguous()
+            and active.is_contiguous()):
+        raise ValueError("origin, direction and active must be contiguous")
+    if origin.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {origin.device}")
+
+
+def march_bh(origin, direction, active, r_s, cfg: RenderConfig):
+    """Horizon + sky march of (..., 3) rays: (final_dir (..., 3), status
+    (...,) float32 in {1 captured, 2 escaped}).
+
+    A CUDA tensor launches ``march_bh_kernel`` (counted in
+    ``march_bh.launches``); a CPU tensor runs :func:`march_bh_torch`."""
+    check_rays(origin, direction, active)
+    if origin.device.type == "cpu":
+        return march_bh_torch(origin, direction, active, r_s, cfg)
+    dev = origin.device
+    fdir = torch.empty_like(origin)
+    status = torch.empty(active.shape, dtype=torch.float32, device=dev)
+    n = active.numel()
+    if n:
+        max_angle, u_f, far_r2 = march_scalars(cfg)
+        lib = _ext.library()
+        rc = lib.march_bh_launch(
+            _ext.ptr(origin), _ext.ptr(direction), _ext.ptr(active),
+            _ext.ptr(fdir), _ext.ptr(status), n,
+            float(np.float32(float(r_s))), cfg.max_steps, max_angle, u_f,
+            far_r2, _ext.stream_ptr(dev))
+        _ext.check(rc, "march_bh")
+        march_bh.launches += 1
+    return fdir, status
+
+
+march_bh.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Frame.
+# ---------------------------------------------------------------------------
+
+
+def noise_field(cfg: RenderConfig, u_ndc, v_ndc):
+    """The per-pixel random field behind the noise-skip mask
+    (frag:879-881) for cfg's ``noise_mode``; zeros when noise is off."""
+    dev = u_ndc.device
+    if cfg.percent_black >= 0.0 and cfg.noise_mode != "none":
+        if cfg.noise_mode == "glsl":
+            uv_vec = torch.stack(
+                [u_ndc, v_ndc * (cfg.height / cfg.width)], dim=-1)
+            return glsl_rand(uv_vec)
+        if cfg.noise_mode == "hash":
+            return pixel_hash_rand(cfg.width, cfg.height, cfg.noise_seed,
+                                   device=dev)
+        if cfg.noise_mode == "tile":
+            return tile_hash_rand(cfg.width, cfg.height, cfg.noise_seed,
+                                  cfg.noise_tile, device=dev)
+        if cfg.noise_mode == "prng":
+            raise ValueError(
+                "noise_mode='prng' draws from JAX's threefry generator, whose "
+                "bits torch cannot reproduce; use 'hash', 'tile' or 'glsl'")
+        raise ValueError(f"unknown noise_mode {cfg.noise_mode!r}")
+    return torch.zeros(u_ndc.shape, device=dev)
+
+
+def pixel_setup(cam, cfg: RenderConfig, device):
+    """Rays and per-pixel masks shared by both frames: a dict with u, v,
+    origin, direction, base (crosshair overlay), flat_px, noise_skip,
+    march_px and normal_vec0."""
+    if cfg.texture_filter != "bilinear":
+        raise NotImplementedError(
+            f"texture_filter={cfg.texture_filter!r}: only 'bilinear' is "
+            "available in schwarzschild_tpu_torch")
+    H, W = cfg.height, cfg.width
+    u, v = cam_mod.pixel_grid(W, H, device=device)
+    origin, direction = cam_mod.generate_rays(cam, u, v, W, H)
+    batch = u.shape
+
+    base = torch.zeros(batch + (4,), device=device)
+    if cfg.crosshair:
+        ch = crosshair_mask(u, v, W, H)
+        base = torch.where(ch[..., None],
+                           torch.tensor(CROSSHAIR_COLOR, device=device), base)
+
+    if cfg.raytrace_type == FLAT:
+        mode_flat = torch.ones(batch, dtype=torch.bool, device=device)
+    elif cfg.raytrace_type == HALF_WIDTH:
+        mode_flat = u > 2.0 * cfg.curved_percentage - 1.0
+    elif cfg.raytrace_type == HALF_HEIGHT:
+        mode_flat = v > 2.0 * cfg.curved_percentage - 1.0
+    else:
+        mode_flat = torch.zeros(batch, dtype=torch.bool, device=device)
+
+    normal_vec0 = geo.safe_normalize(origin)
+    flat_px = mode_flat | physics.is_radial(direction, normal_vec0)
+    rnd = noise_field(cfg, u, v)
+    if cfg.percent_black >= 0.0 and cfg.noise_mode != "none":
+        noise_skip = ~flat_px & (rnd <= cfg.percent_black)
+    else:
+        noise_skip = torch.zeros(batch, dtype=torch.bool, device=device)
+    return dict(u=u, v=v, origin=origin, direction=direction, base=base,
+                flat_px=flat_px, noise_skip=noise_skip,
+                march_px=~flat_px & ~noise_skip, normal_vec0=normal_vec0)
+
+
+def soft_shadow_alphas(origin, direction, normal_vec0, flat_pos, flat_dir,
+                       r_s, softness):
+    """Soft silhouette weights (render.py:297-329 of the JAX package):
+    sigmoids of the photon's conserved impact parameter against
+    b_crit = 3 sqrt(3)/2 r_s for marched rays, and of the straight-line
+    impact parameter against r_s for straight rays.  Returns
+    (alpha_curved, alpha_flat)."""
+    dev = origin.device
+    s_soft = _f32(softness, dev)
+    tangent_vec0 = geo.safe_normalize(
+        geo.cross(geo.cross(normal_vec0, direction), normal_vec0))
+    u0 = 1.0 / geo.length(origin)
+    dt0 = geo.dot(direction, tangent_vec0)
+    dt0 = torch.where(torch.abs(dt0) < 1e-12, 1e-12, dt0)
+    du0 = -u0 * geo.dot(direction, normal_vec0) / dt0
+    e0 = du0 * du0 + u0 * u0 * (1.0 - r_s * u0)
+    b_geo = 1.0 / torch.sqrt(torch.clamp_min(e0, 1e-20))
+    b_crit = _f32(1.5, dev) * torch.sqrt(_f32(3.0, dev)) * r_s
+    b_flat = geo.safe_length(geo.cross(flat_pos, flat_dir))
+    return (torch.sigmoid((b_crit - b_geo) / s_soft),
+            torch.sigmoid((r_s - b_flat) / s_soft))
+
+
+def reject_unported(**options):
+    """Raise NotImplementedError for options of the JAX package's renderers
+    that this package does not have (each is listed in ROADMAP.md)."""
+    for name, value in options.items():
+        if value is not None and value is not False:
+            raise NotImplementedError(
+                f"{name}= is not available in schwarzschild_tpu_torch")
+
+
+def render_horizon_sky(cam, cfg: RenderConfig, background: Texture, r_s=1.0,
+                       *, mesh=None, differentiable=False):
+    """Config-2 frame: empty scene (horizon + equirect sky) marched by
+    :func:`march_bh`, then one background gather.  (H, W, 4) RGBA on the
+    device of ``background``."""
+    reject_unported(mesh=mesh, differentiable=differentiable)
+    dev = background.data.device
+    r_s = _f32(r_s, dev)
+    px = pixel_setup(cam, cfg, dev)
+    origin, direction = px["origin"], px["direction"]
+    flat_px, noise_skip = px["flat_px"], px["noise_skip"]
+
+    final_dir, status = march_bh(origin, direction, px["march_px"], r_s, cfg)
+
+    # Flat pixels: one horizon-sphere test + sky (frag:874-877).
+    d_oc = geo.dot(direction, origin)
+    disc = d_oc * d_oc - geo.square_vector(origin) + r_s * r_s
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    lam = geo.min_positive(-d_oc - sq, -d_oc + sq)
+    flat_bh = (disc >= 0.0) & (lam >= 0.0)
+
+    captured = torch.where(flat_px, flat_bh, status == STATUS_CAPTURED)
+    use_dir = torch.where(flat_px[..., None], direction, final_dir)
+    bg = get_background(background, use_dir)
+    black = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+    zero = torch.zeros(4, device=dev)
+
+    if cfg.horizon_softness > 0.0:
+        alpha_curved, alpha_flat = soft_shadow_alphas(
+            origin, direction, px["normal_vec0"], origin, direction, r_s,
+            cfg.horizon_softness)
+        alpha_sh = torch.where(flat_px, alpha_flat, alpha_curved)
+        bg_scale = (1.0 - alpha_sh)[..., None]
+        color = torch.where(
+            noise_skip[..., None], zero,
+            torch.where(captured[..., None], black, 0.0) + bg * bg_scale)
+    else:
+        color = torch.where(noise_skip[..., None], zero,
+                            torch.where(captured[..., None], black, bg))
+    return px["base"] + color
