@@ -1,38 +1,88 @@
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Phases, one printed line each (any failure raises, so the exit code is not
 0):
   0. device: the card's name and power limit (nvidia-smi);
-  1. build: nvcc compiles schwarzschild_tpu_torch/csrc/*.cu for sm_90a;
+  1. build: nvcc compiles schwarzschild_tpu_torch/csrc/*.cu for sm_90a
+     (ptxas registers and spills per kernel);
   2. march_bh: the kernel against its plain version on config-2 rays at
-     512x512 (status agreement, fdir error, kernel and plain ms);
+     512x512 (status agreement, fdir error, the event record, kernel and
+     plain ms, executed steps and the bound);
   3. march_scene: the same on demo-scene rays at 1280x720 with 4 slots
-     (status, nhits, fdir, fpos, slot planes);
-  4. frames: render_fast (demo scene, 1280x720, 4 slots) and
-     render_horizon_sky (config 2, 512x512) with the launch counters reset
-     just before and read just after, then their times, then small frames
-     rendered on the card against the same frames rendered on the CPU (the
-     plain versions).
+     (status, nhits, fdir, fpos, slot planes; t_end and sstep_k exactly);
+  4. frames: the forward path, render_fast (demo scene, 1280x720, 4 slots)
+     and render_horizon_sky (config 2, 512x512) with the launch counters
+     reset just before and read just after, then their times, then small
+     frames rendered on the card against the same frames on the CPU;
+  5. march_scene_bwd: the adjoint kernel against its plain version at
+     1280x720, both fed the forward kernel's events and the same random
+     cotangents (ms, scratch bytes, ptxas registers and spills, the bound);
+  6. gradient_frames: the gradient path, the gradient of
+     sum(render_fast(differentiable=True) * w) at 1280x720 with respect to
+     r_s, cam.pos and the background texels, and the same for
+     render_horizon_sky at 512x512, with the counters reset around it;
+     forward + backward ms, the split into march forward / adjoint /
+     composition, peak memory, device time from torch.profiler; then the
+     card's gradients against the CPU's at a small size;
+  7. inverse: config 5 at 128x128, inverse.fit(renderer="fast",
+     disk_slot=5) for 5 steps from r_s 0.7 against a target rendered at
+     r_s 1, with the counters reset around it: losses, ms per step.
 Then one JSON line of per-kernel results, the card line again, and as the
 last line {"ok": true, "device": {...}}.
 
-Tolerances: a kernel must agree with its plain version on the status of at
-least 99.9% of lanes; among agreeing lanes at least 99.9% must have every
-float output within 1e-3 relative to 1 + |plain| (the march is chaotic near
-the photon sphere, so a lane can drift without changing its fate).  A frame
-on the card must match the CPU frame within 2e-3 on at least 99.5% of
-pixels.  Times are CUDA-event medians of 10 runs after 2 warm-up runs.
+Tolerances: a forward kernel must agree with its plain version on the
+status of at least 99.9% of lanes; among agreeing lanes at least 99.9%
+must have every float output within 1e-3 relative to 1 + |plain| (the march
+is chaotic near the photon sphere, so a lane can drift without changing its
+fate), and the event planes must be equal.  The adjoint kernel must be
+within 2e-3 of the plain version's largest |value| per output and its r_s
+gradient within 2e-3 relative (tests/test_adjoint.py's rule).  A frame on
+the card must match the CPU frame within 2e-3 on at least 99.5% of pixels;
+gradients within rtol 2e-2, atol 1e-3 (tests/test_kernel_scene.py's rule).
+Times are CUDA-event medians of 10 runs after 2 warm-up runs (plain
+versions: 3 after 1).
+
+Bounds: the least time an H100 SXM could take for a kernel's work, the
+larger of its bytes (each input read once, each output written once) over
+3.35 TB/s and its f32 operations over 67 TFLOP/s.  Operations are counted
+per step from csrc/ on the common path (no far-field re-entry; sinf and
+cosf one each, so the count is low and the bound stays a bound) and
+multiplied by the steps these inputs executed (count_steps).
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+# f32 operations per executed step, counted from csrc/march_common.cuh and
+# csrc/march.cu: rk4_segment 91, the far-field test 1, the escape test 1,
+# the horizon sphere_entry 24, the capture test 1.
+OPS_BH_STEP = 118
+# The scene step: the same 118, the window and select 3, the hit logic 4,
+# and per table row (segment_min_dist) the test and the fold.
+OPS_SCENE_STEP = 125
+OPS_ROW = {"spheres": 35, "planes": 26, "disks": 41, "hollow": 42,
+           "cylinders": 81, "rects": 49}
+# The adjoint's work is each step's forward once (diff_step 92: the
+# far-field test and rk4_segment) and its reverse once (184, the reverse
+# half of diff_step_vjp), plus one compare per slot; per ray, the init 56
+# and its reverse 120 (the reverse half of init_core_vjp).  The kernel
+# recomputes each step's forward inside diff_step_vjp (164 more) and the
+# init inside init_core_vjp rather than saving them: a choice of its design,
+# so the bound leaves those out.
+OPS_BWD_STEP = 92 + 184
+OPS_INIT = 56
+OPS_INIT_VJP = 120
 
 
 def log(phase, **fields):
@@ -66,9 +116,28 @@ def cuda_ms(fn, warmup=2, reps=10):
     return statistics.median(times)
 
 
+def rays(cam, W, H, dev):
+    """Origins, directions and the march's active mask of cam's W x H
+    pixels on dev, as the frames build them."""
+    from schwarzschild_tpu_torch import camera as cam_mod
+    from schwarzschild_tpu_torch import geometry as geo
+    from schwarzschild_tpu_torch import physics
+
+    u, v = cam_mod.pixel_grid(W, H, device=dev)
+    o, d = cam_mod.generate_rays(cam, u, v, W, H)
+    return o, d, ~physics.is_radial(d, geo.safe_normalize(o))
+
+
+def bound(n_bytes, ops):
+    """(bound_ms, bound_by) of work that moves n_bytes and does ops."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def agreement(kernel_out, plain_out):
     """(status share, max abs error and in-tolerance share of the float
-    outputs over status-agreeing lanes)."""
+    outputs over status-agreeing lanes, the agreeing lanes)."""
     same = kernel_out["status"] == plain_out["status"]
     if "nhits" in kernel_out:
         same = same & (kernel_out["nhits"] == plain_out["nhits"])
@@ -87,12 +156,68 @@ def agreement(kernel_out, plain_out):
         max_err = max(max_err, diff[same].max().item() if same.any() else 0.0)
         ok = ok & lane_ok
     within = (ok.sum() / same.sum().clamp_min(1)).item()
-    return share, max_err, within
+    return share, max_err, within, same
 
 
 def require(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def profile_device(fn, top=5):
+    """Device time (ms), kernel count and the ``top`` kernels by device
+    time of one call of ``fn``, from torch.profiler.  A measurement only:
+    a profiler that cannot trace the card gives "not measured", not a
+    failure."""
+    import torch
+
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:  # noqa: BLE001
+        return dict(device_ms=f"not measured: {exc!r}")
+    if not seen:
+        return dict(device_ms="not measured")
+    by_name = {}
+    for e in seen:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    heavy = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return dict(device_ms=sum(e.device_time_total for e in seen) / 1e3,
+                kernels=len(seen),
+                top=[[name[:80], round(us / 1e3, 4)] for name, us in heavy])
+
+
+def ptxas_report(log_text):
+    """{kernel: {"registers": r, "spill_stores": s, "spill_loads": l}}
+    from nvcc -Xptxas -v output (empty when the library was not rebuilt);
+    a forward kernel's events instantiation is "<name><events>"."""
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = next((k for k in ("march_scene_bwd_kernel",
+                                     "march_scene_kernel", "march_bh_kernel")
+                         if k in m.group(1)), m.group(1))
+            if "ILb1E" in m.group(1):  # the <true> (events) instantiation
+                name += "<events>"
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def main() -> int:
@@ -103,14 +228,23 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     import schwarzschild_tpu_torch as sp
-    from schwarzschild_tpu_torch import _ext, configs
-    from schwarzschild_tpu_torch import camera as cam_mod
-    from schwarzschild_tpu_torch import geometry as geo
-    from schwarzschild_tpu_torch import kernel, kernel_scene, physics
+    from schwarzschild_tpu_torch import _ext, configs, inverse
+    from schwarzschild_tpu_torch import kernel, kernel_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    cpu = torch.device("cpu")
+    counters = (kernel.march_bh, kernel_scene.march_scene,
+                kernel_scene.march_scene_bwd)
+
+    def reset_launches():
+        for f in counters:
+            f.launches = 0
+
+    def read_launches():
+        torch.cuda.synchronize()
+        return {f.__name__: f.launches for f in counters}
 
     # 0. device
     card = card_line()
@@ -122,8 +256,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _ext.build()
     _ext.library()
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = ptxas_report(built.log)
     log("build", seconds=round(time.perf_counter() - t0, 3),
         nvcc_seconds=round(built.seconds, 3), compiled=built.built,
         flags=" ".join(_ext.NVCC_FLAGS), sources="schwarzschild_tpu_torch/csrc",
@@ -131,29 +264,33 @@ def main() -> int:
 
     results = {}
 
-    def rays(cam, W, H):
-        u, v = cam_mod.pixel_grid(W, H, device=dev)
-        o, d = cam_mod.generate_rays(cam, u, v, W, H)
-        active = ~physics.is_radial(d, geo.safe_normalize(o))
-        return o, d, active
-
     # 2. march_bh on config-2 rays at 512x512
     c2 = configs.config2_curved(device=dev)
     cfg2 = c2["cfg"]
-    o, d, act = rays(c2["camera"], cfg2.width, cfg2.height)
-    k = kernel.march_bh(o, d, act, 1.0, cfg2)
-    p = kernel.march_bh_torch(o, d, act, 1.0, cfg2)
+    o, d, act = rays(c2["camera"], cfg2.width, cfg2.height, dev)
+    k = kernel.march_bh(o, d, act, 1.0, cfg2, events=True, count_steps=True)
+    p = kernel.march_bh_torch(o, d, act, 1.0, cfg2, events=True)
     torch.cuda.synchronize()
-    share, err, within = agreement(dict(status=k[1], fdir=k[0]),
-                                   dict(status=p[1], fdir=p[0]))
+    share, err, within, same = agreement(dict(status=k[1], fdir=k[0]),
+                                         dict(status=p[1], fdir=p[0]))
+    events_equal = bool(
+        torch.equal(k[2]["t_end"][same], p[2]["t_end"][same])
+        and torch.equal(k[2]["died_moving"][same], p[2]["died_moving"][same]))
+    steps = int(k[3])
     ms = cuda_ms(lambda: kernel.march_bh(o, d, act, 1.0, cfg2))
-    plain_ms = cuda_ms(lambda: kernel.march_bh_torch(o, d, act, 1.0, cfg2))
-    results["march_bh"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    plain_ms = cuda_ms(lambda: kernel.march_bh_torch(o, d, act, 1.0, cfg2),
+                       warmup=1, reps=3)
+    n = act.numel()
+    b_ms, b_by = bound(41 * n, OPS_BH_STEP * steps + OPS_INIT * n)
+    results["march_bh"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by)
     log("march_bh", shape=[cfg2.height, cfg2.width], status_agree=share,
-        fdir_max_abs_err=err, within_tol=within, ms=ms, plain_ms=plain_ms,
-        captured=int((k[1] == 1.0).sum()))
+        fdir_max_abs_err=err, within_tol=within, events_equal=events_equal,
+        ms=ms, plain_ms=plain_ms, executed_steps=steps, bound_ms=b_ms,
+        bound_by=b_by, captured=int((k[1] == 1.0).sum()))
     require(share >= 0.999, f"march_bh status agreement {share}")
     require(within >= 0.999, f"march_bh fdir agreement {within}")
+    require(events_equal, "march_bh event record differs from plain")
 
     # 3. march_scene on demo-scene rays at 1280x720, 4 slots
     sc = configs.demo_scene(device=dev)
@@ -161,66 +298,85 @@ def main() -> int:
     bg = configs.background_texture(device=dev)
     tex = configs.demo_texture_stack(device=dev)
     cfg = sp.RenderConfig(width=1280, height=720, percent_black=-1.0)
-    o, d, act = rays(cam, cfg.width, cfg.height)
+    o, d, act = rays(cam, cfg.width, cfg.height, dev)
 
     def flat(out):
-        fdir, fpos, status, slots, nhits = out
+        fdir, fpos, status, slots, nhits = out[:5]
         res = dict(fdir=fdir, fpos=fpos, status=status, nhits=nhits)
         for i, (s0, d0, l0) in enumerate(slots):
             res.update({f"slot{i}.start": s0, f"slot{i}.dir": d0,
                         f"slot{i}.len": l0})
         return res
 
-    k = flat(kernel_scene.march_scene(o, d, act, 1.0, sc, cfg, 4, tex))
-    p = flat(kernel_scene.march_scene_torch(o, d, act, 1.0, sc, cfg, 4, tex))
+    kout = kernel_scene.march_scene(o, d, act, 1.0, sc, cfg, 4, tex,
+                                    events=True, count_steps=True)
+    pout = kernel_scene.march_scene_torch(o, d, act, 1.0, sc, cfg, 4, tex,
+                                          events=True)
     torch.cuda.synchronize()
-    share, err, within = agreement(k, p)
+    share, err, within, same = agreement(flat(kout), flat(pout))
+    events_equal = torch.equal(kout[5]["t_end"][same],
+                               pout[5]["t_end"][same]) and all(
+        torch.equal(a[same], b[same])
+        for a, b in zip(kout[5]["ssteps"], pout[5]["ssteps"]))
+    steps = int(kout[6])
     ms = cuda_ms(lambda: kernel_scene.march_scene(o, d, act, 1.0, sc, cfg, 4,
                                                   tex))
+    ms_events = cuda_ms(lambda: kernel_scene.march_scene(
+        o, d, act, 1.0, sc, cfg, 4, tex, events=True))
     plain_ms = cuda_ms(lambda: kernel_scene.march_scene_torch(
-        o, d, act, 1.0, sc, cfg, 4, tex))
-    results["march_scene"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    counts = {str(c): int((k["status"] == c).sum()) for c in range(5)}
+        o, d, act, 1.0, sc, cfg, 4, tex), warmup=1, reps=3)
+    tables = kernel_scene._pack_scene_smem(sc, tex)
+    n = act.numel()
+    ops_step = OPS_SCENE_STEP + sum(OPS_ROW[name] * len(rows)
+                                    for name, rows in tables.items())
+    b_ms, b_by = bound((25 + 32 + 28 * 4) * n,
+                       ops_step * steps + OPS_INIT * n)
+    results["march_scene"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by)
+    counts = {str(c): int((kout[2] == c).sum()) for c in range(5)}
     log("march_scene", shape=[cfg.height, cfg.width], n_slots=4,
-        status_nhits_agree=share, max_abs_err=err, within_tol=within, ms=ms,
-        plain_ms=plain_ms, status_counts=counts,
-        max_nhits=int(k["nhits"].max()))
+        status_nhits_agree=share, max_abs_err=err, within_tol=within,
+        events_equal=bool(events_equal), ms=ms, ms_with_events=ms_events,
+        plain_ms=plain_ms, executed_steps=steps, ops_per_step=ops_step,
+        bound_ms=b_ms, bound_by=b_by, status_counts=counts,
+        max_nhits=int(kout[4].max()))
     require(share >= 0.999, f"march_scene status/nhits agreement {share}")
     require(within >= 0.999, f"march_scene float agreement {within}")
+    require(events_equal, "march_scene events differ from plain")
 
-    # 4. frames: the main path, with the launch counters reset around it
-    kernel.march_bh.launches = 0
-    kernel_scene.march_scene.launches = 0
+    # 4. frames: the forward path, with the launch counters reset around it
+    reset_launches()
     img = sp.render_fast(sc, cam, cfg, bg, tex, 1.0, n_slots=4)
     sky = sp.render_horizon_sky(c2["camera"], cfg2, c2["background"], 1.0)
-    torch.cuda.synchronize()
-    launches = {"march_bh": kernel.march_bh.launches,
-                "march_scene": kernel_scene.march_scene.launches}
+    fwd_launches = read_launches()
     require(img.shape == (720, 1280, 4) and bool(torch.isfinite(img).all()),
             "render_fast frame not finite or misshapen")
     require(sky.shape == (512, 512, 4) and bool(torch.isfinite(sky).all()),
             "render_horizon_sky frame not finite or misshapen")
-    require(launches["march_scene"] >= 1, "render_fast launched no kernel")
-    require(launches["march_bh"] >= 1,
+    require(fwd_launches["march_scene"] >= 1, "render_fast launched no kernel")
+    require(fwd_launches["march_bh"] >= 1,
             "render_horizon_sky launched no kernel")
     frame_ms = cuda_ms(lambda: sp.render_fast(sc, cam, cfg, bg, tex, 1.0,
                                               n_slots=4))
     sky_ms = cuda_ms(lambda: sp.render_horizon_sky(c2["camera"], cfg2,
                                                    c2["background"], 1.0))
-    log("frames", launches=launches, render_fast_1280x720_ms=frame_ms,
+    log("frames", launches=fwd_launches, render_fast_1280x720_ms=frame_ms,
         render_horizon_sky_512_ms=sky_ms,
         mean_rgb=[round(x, 6) for x in img[..., :3].mean((0, 1)).tolist()])
 
     small = sp.RenderConfig(width=320, height=180, percent_black=-1.0)
     gpu_img = sp.render_fast(sc, cam, small, bg, tex, 1.0).cpu()
-    cpu_img = sp.render_fast(configs.demo_scene(), configs.demo_camera(),
-                             small, configs.background_texture(),
-                             configs.demo_texture_stack(), 1.0)
+    cpu_img = sp.render_fast(configs.demo_scene(device=cpu),
+                             configs.demo_camera(device=cpu), small,
+                             configs.background_texture(device=cpu),
+                             configs.demo_texture_stack(device=cpu), 1.0)
     sky_small = sp.RenderConfig(width=128, height=128, percent_black=-1.0)
     gpu_sky = sp.render_horizon_sky(c2["camera"], sky_small,
                                     c2["background"], 1.0).cpu()
-    cpu_sky = sp.render_horizon_sky(configs.demo_camera(), sky_small,
-                                    configs.background_texture(), 1.0)
+    cpu_sky = sp.render_horizon_sky(configs.demo_camera(device=cpu),
+                                    sky_small,
+                                    configs.background_texture(device=cpu),
+                                    1.0)
     share_img = ((gpu_img - cpu_img).abs().amax(-1) < 2e-3).float().mean()
     share_sky = ((gpu_sky - cpu_sky).abs().amax(-1) < 2e-3).float().mean()
     log("frames_vs_cpu", render_fast_320x180=share_img.item(),
@@ -228,14 +384,186 @@ def main() -> int:
     require(share_img.item() >= 0.995, f"render_fast vs CPU {share_img}")
     require(share_sky.item() >= 0.995, f"render_horizon_sky vs CPU {share_sky}")
 
+    # 5. march_scene_bwd at 1280x720 on the forward kernel's events
+    gen = torch.Generator(device="cpu").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    H, W = cfg.height, cfg.width
+    cts = (rnd(H, W, 3), rnd(H, W, 3),
+           [(rnd(H, W, 3), rnd(H, W, 3), rnd(H, W)) for _ in range(4)])
+    bwd_args = (o, d, 1.0, cfg, cts, kout[2], kout[5], 4)
+    got = kernel_scene.march_scene_bwd(*bwd_args)
+    ref = kernel_scene.march_scene_bwd_torch(*bwd_args)
+    torch.cuda.synchronize()
+    errs = [(a - b).abs().max().item() / b.abs().max().item()
+            for a, b in zip(got[:2], ref[:2])]
+    rs_err = abs(got[2].item() - ref[2].item()) / abs(ref[2].item())
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    ms = cuda_ms(lambda: kernel_scene.march_scene_bwd(*bwd_args))
+    plain_ms = cuda_ms(lambda: kernel_scene.march_scene_bwd_torch(*bwd_args),
+                       warmup=1, reps=3)
+    scratch = kernel_scene.bwd_scratch_bytes(cfg, n)
+    b_ms, b_by = bound((81 + 32 * 4) * n,
+                       (OPS_BWD_STEP + 4) * steps
+                       + (OPS_INIT + OPS_INIT_VJP) * n)
+    results["march_scene_bwd"] = dict(
+        max_abs_err=max((a - b).abs().max().item()
+                        for a, b in zip(got[:2], ref[:2])),
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    log("march_scene_bwd", shape=[H, W], n_slots=4,
+        rel_err_origin=errs[0], rel_err_direction=errs[1], rel_err_r_s=rs_err,
+        max_abs_err=results["march_scene_bwd"]["max_abs_err"], ms=ms,
+        plain_ms=plain_ms, scratch_bytes=scratch, executed_steps=steps,
+        bound_ms=b_ms, bound_by=b_by,
+        ptxas=ptxas.get("march_scene_bwd_kernel", "library not rebuilt"))
+    require(finite, "march_scene_bwd gave non-finite gradients")
+    require(max(errs) <= 2e-3 and rs_err <= 2e-3,
+            f"march_scene_bwd vs plain: {errs}, r_s {rs_err}")
+
+    # 6. gradient frames: the gradient path, counters reset around it
+    w = torch.rand((H, W, 4), generator=gen).to(dev)
+    w2 = torch.rand((512, 512, 4), generator=gen).to(dev)
+
+    def scene_grad(device, cfg_, w_, scene, camera, back, stack):
+        pos = camera.pos.clone().requires_grad_(True)
+        r_s = torch.tensor(1.0, device=device, requires_grad=True)
+        bg_data = back.data.clone().requires_grad_(True)
+        img_ = sp.render_fast(scene, camera._replace(pos=pos), cfg_,
+                              sp.Texture(bg_data), stack, r_s,
+                              overflow="ignore", differentiable=True)
+        return torch.autograd.grad((img_ * w_).sum(), [r_s, pos, bg_data])
+
+    def sky_grad(device, cfg_, w_, camera, back):
+        pos = camera.pos.clone().requires_grad_(True)
+        r_s = torch.tensor(1.0, device=device, requires_grad=True)
+        bg_data = back.data.clone().requires_grad_(True)
+        img_ = sp.render_horizon_sky(camera._replace(pos=pos), cfg_,
+                                     sp.Texture(bg_data), r_s,
+                                     differentiable=True)
+        return torch.autograd.grad((img_ * w_).sum(), [r_s, pos, bg_data])
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    g_scene = scene_grad(dev, cfg, w, sc, cam, bg, tex)
+    scene_launches = read_launches()
+    scene_peak = torch.cuda.max_memory_allocated() - base_mem
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    g_sky = sky_grad(dev, cfg2, w2, c2["camera"], c2["background"])
+    sky_launches = read_launches()
+    sky_peak = torch.cuda.max_memory_allocated() - base_mem
+    for g in g_scene + g_sky:
+        require(bool(torch.isfinite(g).all()), "non-finite frame gradient")
+    require(scene_launches["march_scene"] >= 1
+            and scene_launches["march_scene_bwd"] >= 1,
+            f"render_fast gradient launches {scene_launches}")
+    require(sky_launches["march_bh"] >= 1
+            and sky_launches["march_scene_bwd"] >= 1,
+            f"render_horizon_sky gradient launches {sky_launches}")
+    require(bool((g_scene[2] != 0).any()) and bool((g_sky[2] != 0).any()),
+            "no background texel gradient")
+    scene_ms = cuda_ms(lambda: scene_grad(dev, cfg, w, sc, cam, bg, tex))
+    sky_grad_ms = cuda_ms(lambda: sky_grad(dev, cfg2, w2, c2["camera"],
+                                           c2["background"]))
+    profiled = profile_device(lambda: scene_grad(dev, cfg, w, sc, cam, bg,
+                                                 tex))
+    log("gradient_frames", launches_render_fast=scene_launches,
+        launches_render_horizon_sky=sky_launches,
+        render_fast_1280x720_fwd_bwd_ms=scene_ms,
+        render_horizon_sky_512_fwd_bwd_ms=sky_grad_ms,
+        split_ms=dict(march_forward_with_events=ms_events,
+                      adjoint=ms,
+                      composition_fwd_bwd=scene_ms - ms_events - ms),
+        peak_bytes_render_fast=scene_peak,
+        peak_bytes_render_horizon_sky=sky_peak,
+        profiled_render_fast=profiled,
+        grad_r_s=g_scene[0].item(), grad_pos=g_scene[1].tolist(),
+        sky_grad_r_s=g_sky[0].item())
+
+    small = sp.RenderConfig(width=64, height=36, percent_black=-1.0)
+    ws = torch.rand((36, 64, 4), generator=gen)
+    gg = scene_grad(dev, small, ws.to(dev), sc, cam, bg, tex)
+    gc = scene_grad(cpu, small, ws, configs.demo_scene(device=cpu),
+                    configs.demo_camera(device=cpu),
+                    configs.background_texture(device=cpu),
+                    configs.demo_texture_stack(device=cpu))
+    sky_small = sp.RenderConfig(width=64, height=64, percent_black=-1.0)
+    wk = torch.rand((64, 64, 4), generator=gen)
+    hg = sky_grad(dev, sky_small, wk.to(dev), c2["camera"], c2["background"])
+    hc = sky_grad(cpu, sky_small, wk, configs.demo_camera(device=cpu),
+                  configs.background_texture(device=cpu))
+
+    def close(a, b):
+        return bool(torch.allclose(a.cpu(), b, rtol=2e-2, atol=1e-3))
+
+    grads_ok = dict(render_fast_r_s=close(gg[0], gc[0]),
+                    render_fast_pos=close(gg[1], gc[1]),
+                    render_horizon_sky_r_s=close(hg[0], hc[0]),
+                    render_horizon_sky_pos=close(hg[1], hc[1]))
+    log("gradients_vs_cpu", sizes=dict(render_fast=[36, 64],
+                                       render_horizon_sky=[64, 64]),
+        card=[gg[0].item(), gg[1].tolist(), hg[0].item(), hg[1].tolist()],
+        cpu=[gc[0].item(), gc[1].tolist(), hc[0].item(), hc[1].tolist()],
+        within_rule=grads_ok)
+    require(all(grads_ok.values()), f"card gradients vs CPU: {grads_ok}")
+
+    # 7. inverse: config 5, five fit steps from r_s 0.7, counters reset
+    c5 = configs.config5_inverse(device=dev)
+    target = sp.render_fast(c5["scene"], c5["camera"], c5["cfg"],
+                            c5["background"], c5["tex"], 1.0,
+                            overflow="ignore")
+    messages, stamps = [], []
+
+    def log_fn(msg):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        messages.append(msg)
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, history = inverse.fit(
+        c5["scene"], c5["cfg"], c5["background"], c5["tex"], 5, target,
+        c5["camera"], r_s0=0.7, n_steps=5, log_every=1, log_fn=log_fn,
+        renderer="fast")
+    inverse_launches = read_launches()
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
+    warnings = [m for m in messages if "WARNING" in m]
+    r_s_fit = float(torch.logaddexp(params.r_s_raw, torch.zeros_like(
+        params.r_s_raw)))
+    optimizer = inverse.default_optimizer()
+    step = inverse.make_train_step(inverse.make_loss(
+        c5["scene"], c5["cfg"], c5["background"], c5["tex"], 5, target),
+        optimizer)
+    state = optimizer.init(params)
+    log("inverse", shape=[128, 128], steps=len(history), losses=history,
+        step_ms=step_ms, r_s_after=r_s_fit, launches=inverse_launches,
+        nonfinite_fired=len(warnings),
+        profiled_step=profile_device(lambda: step(params, state)))
+    require(len(history) == 5 and all(
+        map(lambda x: x == x and abs(x) != float("inf"), history)),
+        f"config-5 losses {history}")
+    require(not warnings, f"non-finite gradient entries: {warnings}")
+    require(inverse_launches["march_scene_bwd"] >= 5,
+            f"config-5 steps launched {inverse_launches}")
+
     src = "schwarzschild_tpu_torch/csrc/march.cu"
     kernels = [
         dict(name="march_bh", route="cuda", source=src,
              replaces="schwarzschild_tpu/kernel.py:252",
-             launches=launches["march_bh"], **results["march_bh"]),
+             launches=fwd_launches["march_bh"], library_ms=None,
+             **results["march_bh"]),
         dict(name="march_scene", route="cuda", source=src,
              replaces="schwarzschild_tpu/kernel_scene.py:961",
-             launches=launches["march_scene"], **results["march_scene"]),
+             launches=fwd_launches["march_scene"], library_ms=None,
+             **results["march_scene"]),
+        dict(name="march_scene_bwd", route="cuda", source=src,
+             replaces="schwarzschild_tpu/kernel_scene.py:787",
+             launches=scene_launches["march_scene_bwd"], library_ms=None,
+             **results["march_scene_bwd"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -33,11 +33,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# Every launch function ends with (n, r_s, max_steps, max_angle, u_f, far_r2,
+# stream).
+_MARCH = [_I, _F, _I, _F, _F, _F, _P]
 _SIGNATURES = {
-    "march_bh_launch": [_P, _P, _P, _P, _P, _I, _F, _I, _F, _F, _F, _P],
-    "march_scene_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                           _F, _I, _F, _F, _F, _P],
+    "march_bh_launch": [_P] * 7 + _MARCH,
+    "march_scene_launch": [_P] * 4 + [_I] * 6 + [_P] * 9 + [_I] + _MARCH,
+    "march_scene_bwd_launch": [_P] * 10 + [_I] + [_P] * 4 + _MARCH,
 }
 
 
@@ -115,4 +117,6 @@ def stream_ptr(device) -> ctypes.c_void_p:
 
 
 def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's device address; None gives a null pointer (an output the
+    kernel skips)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())

@@ -14,6 +14,7 @@ import torch
 
 from . import geometry as geo
 from .config import CURVED, FLAT, HALF_HEIGHT, HALF_WIDTH  # noqa: F401
+from .config import resolve_device
 
 DEFAULT_FOV = 90.0  # degrees, camera.h:7
 
@@ -42,8 +43,9 @@ def _f32(x, device=None):
 
 def make_camera(pos, forward=None, right=None, fov=DEFAULT_FOV, device=None):
     """Build a camera like Camera(pos, forward, right) (camera.cpp:7-11):
-    right and forward normalized, up = cross(right, forward)."""
-    pos = _f32(pos, device)
+    right and forward normalized, up = cross(right, forward); on ``device``
+    (default: the card)."""
+    pos = _f32(pos, resolve_device(device))
     if forward is None:
         axes = torch.eye(3, dtype=torch.float32, device=pos.device)
     else:
@@ -65,7 +67,9 @@ def look_at(cam: Camera, point=(0.0, 0.0, 0.0)) -> Camera:
 
 
 def pixel_grid(width: int, height: int, device=None):
-    """NDC of pixel centres: (u, v), each (height, width), row 0 = top."""
+    """NDC of pixel centres: (u, v), each (height, width), row 0 = top, on
+    ``device`` (default: the card)."""
+    device = resolve_device(device)
     xs = torch.arange(width, dtype=torch.float32, device=device)
     ys = torch.arange(height, dtype=torch.float32, device=device)
     u = geo.true_div(2.0 * (xs + 0.5), float(width)) - 1.0

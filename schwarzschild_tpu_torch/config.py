@@ -3,12 +3,26 @@
 Same fields and defaults as the JAX package, so a configuration converts
 field by field (``convert.render_config``).  The raytrace-mode constants live
 here and are re-exported by ``camera``.
+
+``DEFAULT_DEVICE`` is where the package's builders (configs, scenes,
+cameras, textures, pixel grids, noise fields, ``convert``) put their tensors
+when no ``device`` is given: the CUDA card.  Pass ``device="cpu"`` for the
+plain versions on the CPU; nothing falls back to the CPU on its own.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+
+import torch
+
+DEFAULT_DEVICE = torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or :data:`DEFAULT_DEVICE` when it is None."""
+    return DEFAULT_DEVICE if device is None else torch.device(device)
 
 # Raytrace modes (black_hole.frag:32-35, camera.h:14-19).
 CURVED = 0

@@ -6,7 +6,8 @@ Texture assets are read from the reference app's asset directory named by
 the same numpy steps as the JAX package's, so both packages get bit-equal
 textures.  (The JAX package also looks in a default directory when the
 variable is unset; set it to give both packages the same assets.)  Every
-function takes an optional ``device``.
+function takes an optional ``device``; by default the tensors go to the card
+(``config.DEFAULT_DEVICE``).
 """
 
 from __future__ import annotations
@@ -157,6 +158,17 @@ def _orbiting_planets_scene(device=None):
 def config3_full_scene(device=None):
     """Full scene 1024x1024 with lensing + planet textures."""
     cfg = RenderConfig(width=1024, height=1024, percent_black=-1.0)
+    return dict(scene=_orbiting_planets_scene(device),
+                camera=demo_camera(device), cfg=cfg,
+                background=background_texture(device=device),
+                tex=planet_texture_stack(device))
+
+
+def config5_inverse(device=None):
+    """Inverse rendering at 128x128: optimize r_s + camera pose + the disk
+    texture (slot 5 of the planet stack, the hollow disk's ring)."""
+    cfg = RenderConfig(width=128, height=128, percent_black=-1.0,
+                       checkpoint_every=10)
     return dict(scene=_orbiting_planets_scene(device),
                 camera=demo_camera(device), cfg=cfg,
                 background=background_texture(device=device),

@@ -3,7 +3,8 @@
 Each function takes one of the JAX package's objects with its array leaves
 already turned into numpy arrays by the caller (for example
 ``jax.tree.map(np.asarray, scene)``) and returns this package's twin, field
-by field, with the same shapes and dtypes.  Nothing here imports jax: the
+by field, with the same shapes and dtypes, on ``device`` (default: the
+card).  Nothing here imports jax: the
 objects are read by attribute name only.
 """
 
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from .camera import Camera
-from .config import RenderConfig
+from .config import RenderConfig, resolve_device
 from .scene import (
     BoxesSoA,
     CylindersSoA,
@@ -35,7 +36,7 @@ _SCENE_PARTS = (MaterialsSoA, LightsSoA, SpheresSoA, PlanesSoA, DisksSoA,
 
 
 def _tensor(x, device):
-    return torch.from_numpy(np.array(x)).to(device)
+    return torch.from_numpy(np.array(x)).to(resolve_device(device))
 
 
 def _fields(cls, src, device):

@@ -4,8 +4,10 @@
 (csrc/march.cu), which replaces the Pallas kernel ``_march_kernel``.  On a
 CUDA tensor it launches the kernel (or raises); on a CPU tensor it runs
 ``march_bh_torch``, the plain version: the same per-ray arithmetic as the
-kernel, one step at a time over whole tensors.  ``render_horizon_sky`` is
-the BASELINE config-2 frame around it.
+kernel, one step at a time over whole tensors.  ``march_bh_diff`` makes the
+march differentiable: its backward is the adjoint kernel of
+``kernel_scene.march_scene_bwd`` fed the forward's event record.
+``render_horizon_sky`` is the BASELINE config-2 frame around it.
 
 The march helpers below are shared with ``kernel_scene`` as
 csrc/march_common.cuh is shared by both CUDA kernels.  Divisions by a
@@ -161,12 +163,30 @@ def _f32(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def march_bh_torch(origin, direction, active, r_s, cfg: RenderConfig):
-    """Plain version of the horizon + sky march: (final_dir, status)."""
+def init_events(active, max_steps: int):
+    """Event planes before the first step: t_end = max_steps for a ray that
+    marches (it keeps that value if it never ends), -1 for one that never
+    does."""
+    return torch.where(active, float(max_steps), -1.0)
+
+
+def steps_of(t_end, max_steps: int):
+    """Executed lane-steps of a march from its t_end plane: each ray runs
+    min(t_end + 1, max_steps) loop iterations (0 if it never marched)."""
+    return torch.clamp(t_end.to(torch.int64) + 1, max=max_steps).sum()
+
+
+def march_bh_torch(origin, direction, active, r_s, cfg: RenderConfig,
+                   events: bool = False):
+    """Plain version of the horizon + sky march: (final_dir, status), and
+    with ``events`` a dict of the ray's end step ``t_end`` and whether it
+    moved at that step, ``died_moving`` (see :func:`march_bh`)."""
     r_s = _f32(r_s, origin.device)
     rs2 = r_s * r_s
     max_angle, u_f, far_r2 = march_scalars(cfg)
     s = _init_march(origin, direction, active)
+    t_end = init_events(active, cfg.max_steps)
+    died_moving = torch.zeros_like(active)
     for i in range(cfg.max_steps):
         if not bool(s["live"].any()):
             break  # every later step is the identity
@@ -187,8 +207,13 @@ def march_bh_torch(origin, direction, active, r_s, cfg: RenderConfig):
         status = torch.where(captured, STATUS_CAPTURED, status)
         live = live & ~captured
         _advance(s, live | captured, seg)
+        t_end = torch.where(finish | escaped | captured, float(i), t_end)
+        died_moving = died_moving | captured
         s["status"], s["live"] = status, live
-    return torch.stack([s["dx"], s["dy"], s["dz"]], -1), _final_status(s)
+    out = torch.stack([s["dx"], s["dy"], s["dz"]], -1), _final_status(s)
+    if events:
+        out = out + (dict(t_end=t_end, died_moving=died_moving),)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -218,33 +243,94 @@ def check_rays(origin, direction, active):
         raise ValueError(f"unsupported device {origin.device}")
 
 
-def march_bh(origin, direction, active, r_s, cfg: RenderConfig):
+def march_bh(origin, direction, active, r_s, cfg: RenderConfig,
+             events: bool = False, count_steps: bool = False):
     """Horizon + sky march of (..., 3) rays: (final_dir (..., 3), status
     (...,) float32 in {1 captured, 2 escaped}).
+
+    ``events=True`` appends a dict: ``t_end``, the step of each ray's
+    terminal event (``max_steps`` if it used up its steps, -1 if it never
+    marched), and ``died_moving``, whether it moved at that step: true for a
+    capture on a segment, false for an escape or a flat finish, even one
+    that ends captured (the unbounded horizon test of a far-field ray).
+    ``count_steps=True`` appends the executed lane-steps, the sum over rays
+    of their loop iterations (an int64 scalar tensor).
 
     A CUDA tensor launches ``march_bh_kernel`` (counted in
     ``march_bh.launches``); a CPU tensor runs :func:`march_bh_torch`."""
     check_rays(origin, direction, active)
+    want = events or count_steps
     if origin.device.type == "cpu":
-        return march_bh_torch(origin, direction, active, r_s, cfg)
-    dev = origin.device
-    fdir = torch.empty_like(origin)
-    status = torch.empty(active.shape, dtype=torch.float32, device=dev)
-    n = active.numel()
-    if n:
-        max_angle, u_f, far_r2 = march_scalars(cfg)
-        lib = _ext.library()
-        rc = lib.march_bh_launch(
-            _ext.ptr(origin), _ext.ptr(direction), _ext.ptr(active),
-            _ext.ptr(fdir), _ext.ptr(status), n,
-            float(np.float32(float(r_s))), cfg.max_steps, max_angle, u_f,
-            far_r2, _ext.stream_ptr(dev))
-        _ext.check(rc, "march_bh")
-        march_bh.launches += 1
-    return fdir, status
+        fdir, status, ev = march_bh_torch(origin, direction, active, r_s, cfg,
+                                          events=True)
+    else:
+        dev = origin.device
+        fdir = torch.empty_like(origin)
+        status = torch.empty(active.shape, dtype=torch.float32, device=dev)
+        ev = dict(t_end=None, died_moving=None)  # null: the kernel skips them
+        if want:
+            ev = dict(t_end=torch.empty_like(status),
+                      died_moving=torch.empty_like(active))
+        n = active.numel()
+        if n:
+            max_angle, u_f, far_r2 = march_scalars(cfg)
+            lib = _ext.library()
+            rc = lib.march_bh_launch(
+                _ext.ptr(origin), _ext.ptr(direction), _ext.ptr(active),
+                _ext.ptr(fdir), _ext.ptr(status), _ext.ptr(ev["t_end"]),
+                _ext.ptr(ev["died_moving"]), n,
+                float(np.float32(float(r_s))), cfg.max_steps, max_angle,
+                u_f, far_r2, _ext.stream_ptr(dev))
+            _ext.check(rc, "march_bh")
+            march_bh.launches += 1
+    out = (fdir, status)
+    if events:
+        out = out + (ev,)
+    if count_steps:
+        out = out + (steps_of(ev["t_end"], cfg.max_steps),)
+    return out
 
 
 march_bh.launches = 0
+
+
+class _MarchBhDiff(torch.autograd.Function):
+    """The horizon + sky march with the adjoint kernel as its backward: the
+    forward records each ray's end step and whether it moved there, which
+    fixes every decision the backward replays (n_slots = 0, no fpos)."""
+
+    @staticmethod
+    def forward(ctx, origin, direction, r_s, active, cfg):
+        fdir, status, ev = march_bh(origin, direction, active, r_s, cfg,
+                                    events=True)
+        ctx.save_for_backward(origin, direction, r_s, ev["t_end"],
+                              ev["died_moving"])
+        ctx.cfg = cfg
+        ctx.mark_non_differentiable(status)
+        return fdir, status
+
+    @staticmethod
+    def backward(ctx, g_fdir, _g_status):
+        from .kernel_scene import march_scene_bwd
+
+        origin, direction, r_s, t_end, died_moving = ctx.saved_tensors
+        g_fdir = (torch.zeros_like(origin) if g_fdir is None
+                  else g_fdir.contiguous())
+        g_o, g_d, g_rs = march_scene_bwd(
+            origin, direction, r_s, ctx.cfg,
+            (g_fdir, torch.zeros_like(origin), []), None,
+            dict(t_end=t_end, ssteps=[], died_moving=died_moving), n_slots=0)
+        return g_o, g_d, g_rs.reshape(r_s.shape), None, None
+
+
+def march_bh_diff(origin, direction, active, r_s, cfg: RenderConfig):
+    """Differentiable :func:`march_bh`: (final_dir, status), with gradients
+    to origin, direction and r_s at the decisions the forward took.  The
+    JAX package takes its backward from jax.vjp of a jnp replay of the
+    whole march; here it is the adjoint kernel (``march_scene_bwd``), the
+    same fixed-decision gradient."""
+    r_s = _f32(r_s, origin.device)
+    return _MarchBhDiff.apply(origin, direction, r_s, active, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -351,15 +437,18 @@ def render_horizon_sky(cam, cfg: RenderConfig, background: Texture, r_s=1.0,
                        *, mesh=None, differentiable=False):
     """Config-2 frame: empty scene (horizon + equirect sky) marched by
     :func:`march_bh`, then one background gather.  (H, W, 4) RGBA on the
-    device of ``background``."""
-    reject_unported(mesh=mesh, differentiable=differentiable)
+    device of ``background``.  ``differentiable=True`` marches through
+    :func:`march_bh_diff`, so gradients reach ``r_s``, the camera's tensors
+    and the background texels."""
+    reject_unported(mesh=mesh)
     dev = background.data.device
     r_s = _f32(r_s, dev)
     px = pixel_setup(cam, cfg, dev)
     origin, direction = px["origin"], px["direction"]
     flat_px, noise_skip = px["flat_px"], px["noise_skip"]
 
-    final_dir, status = march_bh(origin, direction, px["march_px"], r_s, cfg)
+    march = march_bh_diff if differentiable else march_bh
+    final_dir, status = march(origin, direction, px["march_px"], r_s, cfg)
 
     # Flat pixels: one horizon-sphere test + sky (frag:874-877).
     d_oc = geo.dot(direction, origin)

@@ -9,6 +9,15 @@ counted, and the ray stops when the horizon (status 1) or a provably opaque
 primitive (status 4) is the segment's closest hit.  ``march_scene_torch``
 is its plain version.
 
+``march_scene_bwd`` is the wrapper of ``march_scene_bwd_kernel``, which
+replaces the Pallas kernel ``_scene_march_bwd_kernel``: the adjoint of the
+march with respect to origin, direction and r_s at the decisions the
+forward run recorded in its event planes (``march_scene(events=True)``).
+Its plain version ``march_scene_bwd_torch`` replays the differentiable
+core with ``diff_step_torch`` and sweeps back with ``diff_step_vjp_torch``,
+the hand-written VJP the kernel computes, line for line.
+``march_scene_diff`` joins the two as a ``torch.autograd.Function``.
+
 ``render_fast`` composes those records into the frame with the per-slot
 pass loop of the JAX package (kernel_scene.py:1831-1889 there): each slot
 re-intersected and shaded in order, added together, cut at the first
@@ -28,6 +37,7 @@ import torch
 
 from . import _ext
 from . import geometry as geo
+from . import physics
 from .config import FLAT, RenderConfig
 from .intersect import intersect_scene
 from .kernel import (  # noqa: F401  (statuses and noise_field are public here too)
@@ -38,16 +48,21 @@ from .kernel import (  # noqa: F401  (statuses and noise_field are public here t
     _dot3,
     _far_field,
     _final_status,
+    _f32,
     _guard,
     _init_march,
     _rk4_segment,
+    _rnorm,
     _sphere_entry,
+    _tangent_of,
     check_rays,
+    init_events,
     march_scalars,
     noise_field,
     pixel_setup,
     reject_unported,
     soft_shadow_alphas,
+    steps_of,
 )
 from .scene import OBJECT_TYPE_SPECIAL, Scene
 from .shading import get_background, shade
@@ -73,7 +88,11 @@ def _opaque_flags(sc: Scene, tex: Optional[TextureStack]):
     """Per-primitive "provably opaque at every sample" flags, in numpy
     (kernel_scene.py:118-179 of the JAX package): material alpha exactly 1,
     no texture or a texture whose whole padded layer has alpha 1, and
-    double-sided normals."""
+    double-sided normals.  A stack that is being optimized
+    (``requires_grad``) proves nothing, as a traced one in the JAX package:
+    the flags are then those of no stack."""
+    if tex is not None and tex.data.requires_grad:
+        tex = None
     m = sc.materials
     color_a = _np(m.color)[:, 3]
     tex_idx = _np(m.texture_index)
@@ -260,9 +279,32 @@ def _split_slots(start, sdir, slen):
 
 def march_scene_torch(origin, direction, active, r_s, sc: Scene,
                       cfg: RenderConfig, n_slots: int = 4,
-                      tex: Optional[TextureStack] = None):
+                      tex: Optional[TextureStack] = None,
+                      events: bool = False):
     """Plain version of the scene march: (final_dir, final_pos, status,
-    slots, nhits), slots a list of K (start (...,3), dir (...,3), len)."""
+    slots, nhits), slots a list of K (start (...,3), dir (...,3), len), and
+    with ``events`` the dict of :func:`march_scene`."""
+    p = _march_scene_planes_torch(origin, direction, active, r_s, sc, cfg,
+                                  n_slots, tex)
+    return _as_outputs(p, events, False, cfg)
+
+
+def _as_outputs(p, events, count_steps, cfg):
+    """A dict of march planes -> march_scene's return tuple."""
+    out = (p["fdir"], p["fpos"], p["status"],
+           _split_slots(p["start"], p["sdir"], p["slen"]), p["nhits"])
+    if events:
+        out = out + (dict(t_end=p["t_end"], ssteps=list(p["sstep"])),)
+    if count_steps:
+        out = out + (steps_of(p["t_end"], cfg.max_steps),)
+    return out
+
+
+def _march_scene_planes_torch(origin, direction, active, r_s, sc: Scene,
+                              cfg: RenderConfig, n_slots: int,
+                              tex: Optional[TextureStack]):
+    """The plain scene march as a dict of planes (fdir, fpos, status, nhits,
+    start, sdir, slen, t_end, sstep), slots stacked on a leading K axis."""
     dev = origin.device
     r_s = torch.as_tensor(r_s, dtype=torch.float32, device=dev)
     rs2 = r_s * r_s
@@ -273,6 +315,8 @@ def march_scene_torch(origin, direction, active, r_s, sc: Scene,
     start = torch.zeros((n_slots,) + origin.shape, device=dev)
     sdir = torch.zeros_like(start)
     slen = torch.zeros((n_slots,) + active.shape, device=dev)
+    t_end = init_events(active, cfg.max_steps)
+    sstep = torch.full_like(slen, -1.0)
     inf = float("inf")
     for i in range(cfg.max_steps):
         if not bool(s["live"].any()):
@@ -304,34 +348,60 @@ def march_scene_torch(origin, direction, active, r_s, sc: Scene,
             start[k] = torch.where(take[..., None], seg_start, start[k])
             sdir[k] = torch.where(take[..., None], seg_dir, sdir[k])
             slen[k] = torch.where(take, seg_len, slen[k])
+            sstep[k] = torch.where(take, float(i), sstep[k])
         nh = torch.where(any_hit, nh + 1.0, nh)
 
         status = torch.where(captured, STATUS_CAPTURED, status)
         status = torch.where(opq_closest, STATUS_HIT_OPAQUE, status)
         live = live & ~captured & ~opq_closest
         _advance(s, live | captured | opq_closest, seg)
+        # The four terminal events are disjoint (each is gated on live).
+        t_end = torch.where(finish | escaped | captured | opq_closest,
+                            float(i), t_end)
         s["status"], s["live"] = status, live
-    return (torch.stack([s["dx"], s["dy"], s["dz"]], -1),
-            torch.stack([s["px"], s["py"], s["pz"]], -1),
-            _final_status(s), _split_slots(start, sdir, slen), nh)
+    return dict(fdir=torch.stack([s["dx"], s["dy"], s["dz"]], -1),
+                fpos=torch.stack([s["px"], s["py"], s["pz"]], -1),
+                status=_final_status(s), nhits=nh, start=start, sdir=sdir,
+                slen=slen, t_end=t_end, sstep=sstep)
 
 
 def march_scene(origin, direction, active, r_s, sc: Scene, cfg: RenderConfig,
-                n_slots: int = 4, tex: Optional[TextureStack] = None):
+                n_slots: int = 4, tex: Optional[TextureStack] = None,
+                events: bool = False, count_steps: bool = False):
     """Scene march of (..., 3) rays: (final_dir, final_pos, status, slots,
     nhits); ``nhits`` counts every hit (uncapped), so ``nhits > n_slots``
     flags rays whose extra hits were dropped.  ``tex`` (the stack the hits
     will be shaded with) enables the in-kernel stop on provably opaque
     primitives.
 
+    ``events=True`` appends the dict {"t_end": (...), "ssteps": [(...)] * K}
+    that the backward needs: the step of each ray's terminal event
+    (``max_steps`` if it used up its steps, -1 if it never marched) and the
+    step at which slot k recorded (-1 if never).  ``count_steps=True``
+    appends the executed lane-steps, the sum over rays of their loop
+    iterations, min(t_end + 1, max_steps) each (an int64 scalar tensor; the
+    JAX package counts whole (8, 128) tiles instead, since a TPU tile runs
+    until its last lane ends).
+
     A CUDA tensor launches ``march_scene_kernel`` (counted in
     ``march_scene.launches``); a CPU tensor runs :func:`march_scene_torch`."""
+    p = _march_scene_planes(origin, direction, active, r_s, sc, cfg, n_slots,
+                            tex, events or count_steps)
+    return _as_outputs(p, events, count_steps, cfg)
+
+
+def _march_scene_planes(origin, direction, active, r_s, sc: Scene,
+                        cfg: RenderConfig, n_slots: int,
+                        tex: Optional[TextureStack], want_events: bool):
+    """:func:`march_scene` as a dict of planes (see
+    :func:`_march_scene_planes_torch`); t_end and sstep are None on the card
+    unless ``want_events``."""
     check_rays(origin, direction, active)
     if n_slots < 0:
         raise ValueError(f"n_slots must be >= 0, got {n_slots}")
     if origin.device.type == "cpu":
-        return march_scene_torch(origin, direction, active, r_s, sc, cfg,
-                                 n_slots, tex)
+        return _march_scene_planes_torch(origin, direction, active, r_s, sc,
+                                         cfg, n_slots, tex)
     dev = origin.device
     tables = _pack_scene_smem(sc, tex)
     for name, width in TABLE_COLUMNS:  # the kernel's fixed row layout
@@ -350,9 +420,11 @@ def march_scene(origin, direction, active, r_s, sc: Scene, cfg: RenderConfig,
     status = torch.empty(active.shape, dtype=torch.float32, device=dev)
     nhits = torch.empty_like(status)
     # The kernel writes a slot only where a ray records one: zero the rest.
-    start = torch.zeros((max(n_slots, 1),) + origin.shape, device=dev)
+    start = torch.zeros((n_slots,) + origin.shape, device=dev)
     sdir = torch.zeros_like(start)
-    slen = torch.zeros((max(n_slots, 1),) + active.shape, device=dev)
+    slen = torch.zeros((n_slots,) + active.shape, device=dev)
+    t_end = torch.empty_like(status) if want_events else None
+    sstep = torch.full_like(slen, -1.0) if want_events else None
     n = active.numel()
     if n:
         max_angle, u_f, far_r2 = march_scalars(cfg)
@@ -361,16 +433,511 @@ def march_scene(origin, direction, active, r_s, sc: Scene, cfg: RenderConfig,
             _ext.ptr(origin), _ext.ptr(direction), _ext.ptr(active),
             _ext.ptr(buf), *rows, _ext.ptr(fdir), _ext.ptr(fpos),
             _ext.ptr(status), _ext.ptr(nhits), _ext.ptr(start),
-            _ext.ptr(sdir), _ext.ptr(slen), n_slots, n,
-            float(np.float32(float(r_s))), cfg.max_steps, max_angle, u_f,
-            far_r2, _ext.stream_ptr(dev))
+            _ext.ptr(sdir), _ext.ptr(slen), _ext.ptr(t_end), _ext.ptr(sstep),
+            n_slots, n, float(np.float32(float(r_s))), cfg.max_steps,
+            max_angle, u_f, far_r2, _ext.stream_ptr(dev))
         _ext.check(rc, "march_scene")
         march_scene.launches += 1
-    slots = _split_slots(start[:n_slots], sdir[:n_slots], slen[:n_slots])
-    return fdir, fpos, status, slots, nhits
+    return dict(fdir=fdir, fpos=fpos, status=status, nhits=nhits,
+                start=start, sdir=sdir, slen=slen, t_end=t_end, sstep=sstep)
 
 
 march_scene.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The adjoint: the differentiable core, its hand-written VJP, the backward
+# kernel's wrapper and plain version, and the differentiable march.
+# ---------------------------------------------------------------------------
+
+# The core values a step carries gradients through (kernel_scene._CORE of
+# the JAX package; the kernel's save scratch rows follow this order).
+_CORE = ("px", "py", "pz", "dx", "dy", "dz", "nx", "ny", "nz",
+         "tx", "ty", "tz", "u", "du", "phi")
+
+
+def _init_core_torch(origin, direction):
+    """The differentiable slice of the march's init (_init_core of the JAX
+    package): a tuple of the 15 core planes."""
+    s = _init_march(origin, direction,
+                    torch.ones(origin.shape[:-1], dtype=torch.bool,
+                               device=origin.device))
+    return tuple(s[k] for k in _CORE)
+
+
+def diff_step_torch(i, core, live_in, moved, r_s, cfg: RenderConfig):
+    """One march step at fixed decisions (_make_diff_step of the JAX
+    package), through the forward march's own functions: a live ray takes
+    the far-field re-init where its values call for it, a ray that moved
+    takes its segment's end.  Returns (new core, slot values (start x, y, z,
+    segment direction x, y, z, segment length))."""
+    max_angle, u_f, far_r2 = march_scalars(cfg)
+    s = dict(zip(_CORE, core))
+    s["live"] = live_in
+    _far_field(s, u_f, far_r2)
+    seg, seg_len = _rk4_segment(s, i, r_s, cfg.max_steps, max_angle)
+    slot = (s["px"], s["py"], s["pz"], seg["dx"], seg["dy"], seg["dz"],
+            seg_len)
+    _advance(s, moved, seg)
+    return tuple(s[k] for k in _CORE), slot
+
+
+# The VJP helpers mirror march_common.cuh's: each returns the cotangents it
+# contributes, 3-vectors as tuples of planes.  The guards follow the JAX
+# package: max(x, c) passes 1 above c, 1/2 at a tie and 0 below; min(a, b)
+# passes to the smaller, 1/2 each at a tie; guard(x) passes nothing where it
+# replaced x; a select passes only to the branch it took.
+
+
+def _vmax_grad(x, c):
+    return torch.where(x > c, 1.0, torch.where(x == c, 0.5, 0.0))
+
+
+def _axpy(g, b):
+    return tuple(g * bi for bi in b)
+
+
+def _add(a, b):
+    return tuple(x + y for x, y in zip(a, b))
+
+
+def _rnorm3_vjp(v, inv, g_inv):
+    x, y, z = v
+    m = x * x + y * y + z * z
+    g_m = g_inv * (-0.5 * inv / torch.clamp_min(m, 1e-20)) * _vmax_grad(
+        m, 1e-20)
+    return _axpy(2.0 * g_m, v)
+
+
+def _len3_vjp(v, length, g_len):
+    x, y, z = v
+    m = x * x + y * y + z * z
+    g_m = g_len * (0.5 / length) * _vmax_grad(m, 1e-20)
+    return _axpy(2.0 * g_m, v)
+
+
+def _tangent_of_vjp(n, d, g_t):
+    """t = tangent_of(n, d): the cotangents of n and d.  With c = n x d and
+    x = c x n: g_c = n x g_x, g_n = g_x x c + d x g_c, g_d = g_c x n."""
+    nx, ny, nz = n
+    dx, dy, dz = d
+    cx = ny * dz - nz * dy
+    cy = nz * dx - nx * dz
+    cz = nx * dy - ny * dx
+    x = cy * nz - cz * ny
+    y = cz * nx - cx * nz
+    z = cx * ny - cy * nx
+    inv = _rnorm(x, y, z)
+    gx, gy, gz = _add(_axpy(inv, g_t),
+                      _rnorm3_vjp((x, y, z), inv, _dot3(*g_t, x, y, z)))
+    gcx = ny * gz - nz * gy
+    gcy = nz * gx - nx * gz
+    gcz = nx * gy - ny * gx
+    g_n = ((gy * cz - gz * cy) + (dy * gcz - dz * gcy),
+           (gz * cx - gx * cz) + (dz * gcx - dx * gcz),
+           (gx * cy - gy * cx) + (dx * gcy - dy * gcx))
+    g_d = (gcy * nz - gcz * ny, gcz * nx - gcx * nz, gcx * ny - gcy * nx)
+    return g_n, g_d
+
+
+def _binet_du_vjp(u, nd, dt, du, g_du):
+    """du = -u * nd / guard(dt): the cotangents of u, nd and dt."""
+    den = _guard(dt)
+    g_num = g_du / den
+    g_dt = torch.where(torch.abs(dt) < 1e-12, 0.0, -g_du * du / den)
+    return -g_num * nd, g_num * -u, g_dt
+
+
+def _min_positive_vjp(a, b, g):
+    both = (a > 0.0) & (b > 0.0)
+    ga = torch.where(both, torch.where(a < b, g, torch.where(b < a, 0.0,
+                                                             0.5 * g)),
+                     torch.where(a > 0.0, g, 0.0))
+    gb = torch.where(both, torch.where(b < a, g, torch.where(a < b, 0.0,
+                                                             0.5 * g)),
+                     torch.where((a <= 0.0) & (b > 0.0), g, 0.0))
+    return ga, gb
+
+
+def _far_field_vjp(c, far_r2, g_nn, g_nt, g_new_u, g_new_du):
+    """The far-field re-init values (nn, nt, new_u, new_du) as functions of
+    the core's p and d: their cotangents (g_p, g_d)."""
+    p = (c["px"], c["py"], c["pz"])
+    d = (c["dx"], c["dy"], c["dz"])
+    d_oc = _dot3(*d, *p)
+    oc2 = _dot3(*p, *p)
+    disc = d_oc * d_oc - oc2 + far_r2
+    sq = torch.sqrt(torch.clamp_min(disc, 1e-20))
+    lam1, lam2 = -d_oc - sq, -d_oc + sq
+    big_lam = geo.min_positive(lam1, lam2)
+    h = tuple(pi + big_lam * di for pi, di in zip(p, d))
+    inv_h = _rnorm(*h)
+    nn = _axpy(inv_h, h)
+    nd = _dot3(*nn, *d)
+    nt = _tangent_of(*nn, *d)
+    dt = _dot3(*nt, *d)
+    new_du = -inv_h * nd / _guard(dt)
+
+    g_u, g_nd, g_dt = _binet_du_vjp(inv_h, nd, dt, new_du, g_new_du)
+    g_inv_h = g_new_u + g_u
+    g_nt = _add(g_nt, _axpy(g_dt, d))
+    g_d = _axpy(g_dt, nt)
+    tn, td = _tangent_of_vjp(nn, d, g_nt)
+    g_nn = _add(_add(g_nn, tn), _axpy(g_nd, d))
+    g_d = _add(_add(g_d, td), _axpy(g_nd, nn))
+    g_inv_h = g_inv_h + _dot3(*g_nn, *h)
+    g_h = _add(_axpy(inv_h, g_nn), _rnorm3_vjp(h, inv_h, g_inv_h))
+    g_p = g_h
+    g_lam = _dot3(*g_h, *d)
+    g_d = _add(g_d, _axpy(big_lam, g_h))
+    g_lam1, g_lam2 = _min_positive_vjp(lam1, lam2, g_lam)
+    g_sq = g_lam2 - g_lam1
+    g_disc = g_sq * (0.5 / sq) * _vmax_grad(disc, 1e-20)
+    g_doc = -(g_lam1 + g_lam2) + 2.0 * d_oc * g_disc
+    g_p = _add(g_p, _axpy(-2.0 * g_disc, p))
+    g_d = _add(g_d, _axpy(g_doc, p))
+    g_p = _add(g_p, _axpy(g_doc, d))
+    return g_p, g_d
+
+
+def _ddu_du(u, r_s):
+    return -(1.0 - 1.5 * r_s * u) + 1.5 * r_s * u
+
+
+def _ddu_drs(u):
+    return 1.5 * u * u
+
+
+def diff_step_vjp_torch(i, core, ct, ct_slot, live_in, moved, r_s,
+                        cfg: RenderConfig):
+    """The hand-written VJP of :func:`diff_step_torch` at step ``i`` from
+    its input ``core``, as march_common.cuh's diff_step_vjp computes it:
+    ``ct`` (15 planes) is the cotangent of the step's output core and
+    ``ct_slot`` (7 planes) that of its slot values.  Returns (the cotangent
+    of the input core, the per-lane r_s cotangent)."""
+    max_angle, u_f, far_r2 = march_scalars(cfg)
+    c = dict(zip(_CORE, core))
+    g = dict(c)
+    g["live"] = live_in
+    finish = _far_field(g, u_f, far_r2)
+    reinit = live_in & (c["u"] < u_f) & ~finish
+    seg, seg_len = _rk4_segment(g, i, r_s, cfg.max_steps, max_angle)
+    u0, du0 = g["u"], g["du"]
+    h = geo.true_div(max_angle - c["phi"], float(cfg.max_steps - i))
+    k1 = du0
+    l1 = physics.ddu(u0, r_s)
+    k2 = du0 + 0.5 * l1 * h
+    a2 = u0 + 0.5 * k1 * h
+    l2 = physics.ddu(a2, r_s)
+    k3 = du0 + 0.5 * l2 * h
+    a3 = u0 + 0.5 * k2 * h
+    l3 = physics.ddu(a3, r_s)
+    k4 = du0 + l3 * h
+    a4 = u0 + k3 * h
+    l4 = physics.ddu(a4, r_s)
+    h6 = geo.true_div(h, 6.0)
+    su = k1 + 2.0 * k2 + 2.0 * k3 + k4
+    sl = l1 + 2.0 * l2 + 2.0 * l3 + l4
+    u1 = seg["u"]
+    inv_u = 1.0 / torch.clamp_min(u1, 1e-6)
+    cphi, sphi = torch.cos(seg["phi"]), torch.sin(seg["phi"])
+    n = (g["nx"], g["ny"], g["nz"])
+    t = (g["tx"], g["ty"], g["tz"])
+    q = _add(_axpy(cphi, n), _axpy(sphi, t))
+    p = (c["px"], c["py"], c["pz"])
+    dd = (seg["px"] - p[0], seg["py"] - p[1], seg["pz"] - p[2])
+    inv_seg = _rnorm(*dd)
+
+    # The output selects.
+    zero = torch.zeros_like(u0)
+
+    def sel(m, a):
+        return torch.where(m, a, zero)
+
+    ct_p, ct_d = ct[0:3], ct[3:6]
+    g_np = tuple(sel(moved, x) for x in ct_p)
+    in_p = tuple(sel(~moved, x) + y for x, y in zip(ct_p, ct_slot[0:3]))
+    g_sd = tuple(y + sel(moved, x) for x, y in zip(ct_d, ct_slot[3:6]))
+    in_d = tuple(sel(~moved, x) for x in ct_d)
+    g_u1, g_du1, g_phi1 = (sel(moved, x) for x in ct[12:15])
+    g_u0, g_du0 = sel(~moved, ct[12]), sel(~moved, ct[13])
+    in_phi = sel(~moved, ct[14])
+    g_n, g_t = ct[6:9], ct[9:12]
+
+    # Segment: sd = dd * inv_seg, seg_len = len3(dd), dd = np - p.
+    g_dd = _add(_axpy(inv_seg, g_sd),
+                _rnorm3_vjp(dd, inv_seg, _dot3(*g_sd, *dd)))
+    g_dd = _add(g_dd, _len3_vjp(dd, seg_len, ct_slot[6]))
+    g_np = _add(g_np, g_dd)
+    in_p = tuple(x - y for x, y in zip(in_p, g_dd))
+
+    # Polar -> Cartesian: np = q * inv_u, q = cos(phi1) n + sin(phi1) t.
+    g_inv_u = _dot3(*g_np, *q)
+    g_q = _axpy(inv_u, g_np)
+    g_u1 = g_u1 + -g_inv_u * inv_u * inv_u * _vmax_grad(u1, 1e-6)
+    g_n = _add(g_n, _axpy(cphi, g_q))
+    g_t = _add(g_t, _axpy(sphi, g_q))
+    g_c = _dot3(*g_q, *n)
+    g_s = _dot3(*g_q, *t)
+    g_phi1 = g_phi1 + (-sphi * g_c + cphi * g_s)
+
+    # RK4 (physics.rk4_step), in reverse.
+    g_u0 = g_u0 + g_u1
+    g_du0 = g_du0 + g_du1
+    g_h = (g_u1 * su + g_du1 * sl) / 6.0
+    g_su, g_sl = g_u1 * h6, g_du1 * h6
+    g_k1, g_k2, g_k3, g_k4 = g_su, 2.0 * g_su, 2.0 * g_su, g_su
+    g_l1, g_l2, g_l3, g_l4 = g_sl, 2.0 * g_sl, 2.0 * g_sl, g_sl
+    g_a4 = g_l4 * _ddu_du(a4, r_s)
+    g_rs = g_l4 * _ddu_drs(a4)
+    g_du0 = g_du0 + g_k4
+    g_l3 = g_l3 + g_k4 * h
+    g_h = g_h + g_k4 * l3
+    g_u0 = g_u0 + g_a4
+    g_k3 = g_k3 + g_a4 * h
+    g_h = g_h + g_a4 * k3
+    g_a3 = g_l3 * _ddu_du(a3, r_s)
+    g_rs = g_rs + g_l3 * _ddu_drs(a3)
+    g_du0 = g_du0 + g_k3
+    g_l2 = g_l2 + g_k3 * 0.5 * h
+    g_h = g_h + g_k3 * 0.5 * l2
+    g_u0 = g_u0 + g_a3
+    g_k2 = g_k2 + g_a3 * 0.5 * h
+    g_h = g_h + g_a3 * 0.5 * k2
+    g_a2 = g_l2 * _ddu_du(a2, r_s)
+    g_rs = g_rs + g_l2 * _ddu_drs(a2)
+    g_du0 = g_du0 + g_k2
+    g_l1 = g_l1 + g_k2 * 0.5 * h
+    g_h = g_h + g_k2 * 0.5 * l1
+    g_u0 = g_u0 + g_a2
+    g_k1 = g_k1 + g_a2 * 0.5 * h
+    g_h = g_h + g_a2 * 0.5 * k1
+    g_u0 = g_u0 + g_l1 * _ddu_du(u0, r_s)
+    g_rs = g_rs + g_l1 * _ddu_drs(u0)
+    g_du0 = g_du0 + g_k1
+    # phi1 = phi + h, h = (max_angle - phi) / (max_steps - i).
+    g_h = g_h + g_phi1
+    in_phi = in_phi + g_phi1 - g_h / float(cfg.max_steps - i)
+
+    # The re-init select.
+    ff_p, ff_d = _far_field_vjp(c, far_r2, g_n, g_t, g_u0, g_du0)
+    in_p = tuple(x + sel(reinit, y) for x, y in zip(in_p, ff_p))
+    in_d = tuple(x + sel(reinit, y) for x, y in zip(in_d, ff_d))
+    keep = ~reinit
+    in_n = tuple(sel(keep, x) for x in g_n)
+    in_t = tuple(sel(keep, x) for x in g_t)
+    ct_in = (in_p + in_d + in_n + in_t
+             + (sel(keep, g_u0), sel(keep, g_du0), in_phi))
+    return ct_in, g_rs
+
+
+def _init_core_vjp_torch(origin, direction, ct):
+    """The VJP of :func:`_init_core_torch` from the initial core's
+    cotangent ``ct``: (g_origin, g_direction), each (..., 3)."""
+    s = _init_march(origin, direction,
+                    torch.ones(origin.shape[:-1], dtype=torch.bool,
+                               device=origin.device))
+    o = (s["px"], s["py"], s["pz"])
+    d = (s["dx"], s["dy"], s["dz"])
+    n = (s["nx"], s["ny"], s["nz"])
+    t = (s["tx"], s["ty"], s["tz"])
+    inv = s["u"]
+    nd0 = _dot3(*n, *d)
+    dt0 = _dot3(*t, *d)
+    g_o, g_d, g_n, g_t = ct[0:3], ct[3:6], ct[6:9], ct[9:12]
+    g_u, g_nd, g_dt = _binet_du_vjp(inv, nd0, dt0, s["du"], ct[13])
+    g_inv = ct[12] + g_u
+    g_t = _add(g_t, _axpy(g_dt, d))
+    g_d = _add(g_d, _axpy(g_dt, t))
+    g_n = _add(g_n, _axpy(g_nd, d))
+    g_d = _add(g_d, _axpy(g_nd, n))
+    tn, td = _tangent_of_vjp(n, d, g_t)
+    g_n = _add(g_n, tn)
+    g_d = _add(g_d, td)
+    g_o = _add(g_o, _axpy(inv, g_n))
+    g_inv = g_inv + _dot3(*g_n, *o)
+    g_o = _add(g_o, _rnorm3_vjp(o, inv, g_inv))
+    return torch.stack(g_o, -1), torch.stack(g_d, -1)
+
+
+def _died_moving(status, events):
+    """Whether each ray moved at its end step: the horizon march records it
+    (``events["died_moving"]``); for the scene march a capture or an opaque
+    stop moves into its hit and an escape or a flat finish does not."""
+    if "died_moving" in events:
+        return events["died_moving"]
+    return (status == STATUS_CAPTURED) | (status == STATUS_HIT_OPAQUE)
+
+
+def _step_masks(i, t_end, died_moving):
+    """(live_in, moved) of step i from the event planes."""
+    live_in = float(i) <= t_end
+    moved = (float(i) < t_end) | ((t_end == float(i)) & died_moving)
+    return live_in, moved
+
+
+def march_scene_bwd_torch(origin, direction, r_s, cfg: RenderConfig,
+                          cotangents, status, events, n_slots: int = 4):
+    """Plain version of the adjoint kernel (arguments and result as
+    :func:`march_scene_bwd`): replay the core over every step some ray ran,
+    saving it, then sweep back with :func:`diff_step_vjp_torch`.  A ray's
+    steps past its t_end pass its cotangent through unchanged, as the
+    kernel, which never walks them, does."""
+    ct_fdir, ct_fpos, ct_slots = cotangents
+    r_s = _f32(r_s, origin.device)
+    t_end = events["t_end"]
+    ssteps = events["ssteps"]
+    died_moving = _died_moving(status, events)
+    last = (min(cfg.max_steps, int(t_end.max().item()) + 1)
+            if t_end.numel() else 0)
+    core = _init_core_torch(origin, direction)
+    saves = []
+    for i in range(last):
+        saves.append(core)
+        core, _ = diff_step_torch(i, core, *_step_masks(i, t_end, died_moving),
+                                  r_s, cfg)
+    zero = torch.zeros(origin.shape[:-1], device=origin.device)
+    ct = ct_fpos.unbind(-1) + ct_fdir.unbind(-1) + (zero,) * 9
+    g_rs = zero
+    for i in reversed(range(last)):
+        live_in, moved = _step_masks(i, t_end, died_moving)
+        ct_slot = [zero] * 7
+        for k in range(n_slots):
+            take = ssteps[k] == float(i)
+            cs, cd, cl = ct_slots[k]
+            vals = cs.unbind(-1) + cd.unbind(-1) + (cl,)
+            ct_slot = [a + torch.where(take, v, 0.0)
+                       for a, v in zip(ct_slot, vals)]
+        new_ct, g = diff_step_vjp_torch(i, saves[i], ct, ct_slot, live_in,
+                                        moved, r_s, cfg)
+        ct = tuple(torch.where(live_in, a, b) for a, b in zip(new_ct, ct))
+        g_rs = g_rs + torch.where(live_in, g, 0.0)
+    g_origin, g_dir = _init_core_vjp_torch(origin, direction, ct)
+    return g_origin, g_dir, g_rs.sum()
+
+
+def march_scene_bwd(origin, direction, r_s, cfg: RenderConfig, cotangents,
+                    status, events, n_slots: int = 4):
+    """Adjoint of :func:`march_scene` with respect to (origin, direction,
+    r_s) at the decisions the forward run took.  ``cotangents`` = (ct_fdir,
+    ct_fpos, ct_slots), ct_slots a list of K (ct_start, ct_dir, ct_len);
+    ``status`` and ``events`` (the dict of ``march_scene(events=True)``)
+    carry the forward's decisions, so no scene is needed.  ``events`` may
+    also hold ``died_moving`` (the horizon march's record), which then
+    replaces the one read from ``status``.  Returns (g_origin, g_direction,
+    g_r_s scalar).
+
+    A CUDA tensor launches ``march_scene_bwd_kernel`` (counted in
+    ``march_scene_bwd.launches``) with a scratch of max_steps x 15 x rays
+    f32 (:func:`bwd_scratch_bytes`); a CPU tensor runs
+    :func:`march_scene_bwd_torch`."""
+    if origin.device.type == "cpu":
+        return march_scene_bwd_torch(origin, direction, r_s, cfg, cotangents,
+                                     status, events, n_slots)
+    dev = origin.device
+    ct_fdir, ct_fpos, ct_slots = cotangents
+    if len(ct_slots) != n_slots or len(events["ssteps"]) != n_slots:
+        raise ValueError(f"expected {n_slots} slot cotangents and sstep "
+                         "planes")
+    batch = origin.shape[:-1]
+    planes = [origin, direction, ct_fdir, ct_fpos]
+    if any(x.shape != origin.shape for x in planes):
+        raise ValueError("origin, direction and the fdir/fpos cotangents "
+                         "must share one (..., 3) shape")
+
+    def stack(xs, shape):
+        if not xs:
+            return torch.zeros((0,) + shape, device=dev)
+        return torch.stack([x.to(torch.float32) for x in xs]).contiguous()
+
+    t_end = events["t_end"].to(torch.float32).contiguous()
+    died = _died_moving(status, events).to(torch.bool).contiguous()
+    sstep = stack(events["ssteps"], batch)
+    ct_start = stack([c[0] for c in ct_slots], origin.shape)
+    ct_sdir = stack([c[1] for c in ct_slots], origin.shape)
+    ct_slen = stack([c[2] for c in ct_slots], batch)
+    args = [origin, direction, t_end, died, sstep, ct_fdir.contiguous(),
+            ct_fpos.contiguous(), ct_start, ct_sdir, ct_slen]
+    if any(x.device != dev for x in args):
+        raise ValueError("march_scene_bwd: every input must be on one device")
+    g_origin = torch.empty_like(origin)
+    g_dir = torch.empty_like(origin)
+    g_rs = torch.zeros(batch, device=dev)
+    n = t_end.numel()
+    if n:
+        save = torch.empty(bwd_scratch_bytes(cfg, n) // 4, device=dev)
+        max_angle, u_f, far_r2 = march_scalars(cfg)
+        rc = _ext.library().march_scene_bwd_launch(
+            *(_ext.ptr(x) for x in args), n_slots, _ext.ptr(g_origin),
+            _ext.ptr(g_dir), _ext.ptr(g_rs), _ext.ptr(save), n,
+            float(np.float32(float(r_s))), cfg.max_steps, max_angle, u_f,
+            far_r2, _ext.stream_ptr(dev))
+        _ext.check(rc, "march_scene_bwd")
+        march_scene_bwd.launches += 1
+    return g_origin, g_dir, torch.sum(g_rs)
+
+
+march_scene_bwd.launches = 0
+
+
+def bwd_scratch_bytes(cfg: RenderConfig, n_rays: int) -> int:
+    """Bytes of the adjoint kernel's save scratch: the 15 core values of
+    every step of every ray, f32."""
+    return cfg.max_steps * len(_CORE) * n_rays * 4
+
+
+class _MarchSceneDiff(torch.autograd.Function):
+    """The scene march with the adjoint kernel as its backward.  The slots
+    travel as stacked (K, ...) tensors: a Function cannot return a list of
+    tuples."""
+
+    @staticmethod
+    def forward(ctx, origin, direction, r_s, active, sc, cfg, n_slots, tex):
+        p = _march_scene_planes(origin, direction, active, r_s, sc, cfg,
+                                n_slots, tex, True)
+        ctx.save_for_backward(origin, direction, r_s, p["status"],
+                              p["t_end"], p["sstep"])
+        ctx.cfg, ctx.n_slots = cfg, n_slots
+        ctx.mark_non_differentiable(p["status"], p["nhits"])
+        return (p["fdir"], p["fpos"], p["status"], p["nhits"], p["start"],
+                p["sdir"], p["slen"])
+
+    @staticmethod
+    def backward(ctx, g_fdir, g_fpos, _g_status, _g_nhits, g_start, g_sdir,
+                 g_slen):
+        origin, direction, r_s, status, t_end, sstep = ctx.saved_tensors
+        K = ctx.n_slots
+
+        def ct(g, shape):
+            return torch.zeros(shape, device=origin.device) if g is None else g
+
+        g_fdir = ct(g_fdir, origin.shape)
+        g_fpos = ct(g_fpos, origin.shape)
+        g_start = ct(g_start, (K,) + origin.shape)
+        g_sdir = ct(g_sdir, (K,) + origin.shape)
+        g_slen = ct(g_slen, (K,) + origin.shape[:-1])
+        slots = [(g_start[k], g_sdir[k], g_slen[k]) for k in range(K)]
+        g_o, g_d, g_rs = march_scene_bwd(
+            origin, direction, r_s, ctx.cfg, (g_fdir, g_fpos, slots), status,
+            dict(t_end=t_end, ssteps=list(sstep)), n_slots=K)
+        return g_o, g_d, g_rs.reshape(r_s.shape), None, None, None, None, None
+
+
+def march_scene_diff(origin, direction, active, r_s, sc: Scene,
+                     cfg: RenderConfig, n_slots: int = 4,
+                     tex: Optional[TextureStack] = None):
+    """Differentiable :func:`march_scene`: the forward kernel with its event
+    planes, and the adjoint kernel (:func:`march_scene_bwd`) as backward.
+    Gradients reach (origin, direction, r_s) at the decisions the forward
+    took (which object, capture or escape); status and nhits carry none.
+    The scene's geometry gets no gradient through the march: the march reads
+    it only in comparisons.  Scene and texture gradients come from the slot
+    re-intersection in :func:`render_fast`.  Returns what
+    :func:`march_scene` returns."""
+    r_s = _f32(r_s, origin.device)
+    fdir, fpos, status, nhits, start, sdir, slen = _MarchSceneDiff.apply(
+        origin, direction, r_s, active, sc, cfg, n_slots, tex)
+    return fdir, fpos, status, _split_slots(start, sdir, slen), nhits
 
 
 def render_fast(
@@ -397,13 +964,17 @@ def render_fast(
     ``overflow`` reports rays that crossed more than ``n_slots`` hits (their
     extra hits are dropped): "warn" warns, "return" returns
     ``(image, n_overflowed)``, "ignore" does neither.  ``opaque_stop`` lets
-    the march stop at provably opaque primitives.  The remaining keywords
-    name options of the JAX package that this package does not have; any
-    value but the default raises NotImplementedError."""
+    the march stop at provably opaque primitives.  ``differentiable=True``
+    marches through :func:`march_scene_diff` (the adjoint kernel as its
+    backward) and composes with torch autograd, so gradients reach ``r_s``,
+    the camera's tensors, the background texels and the texture stack; a
+    stack that requires grad gives the march no opaque stop, as a traced
+    stack does in the JAX package.  The remaining keywords name options of
+    the JAX package that this package does not have; any value but the
+    default raises NotImplementedError."""
     if overflow not in ("warn", "return", "ignore"):
         raise ValueError(f"unknown overflow mode {overflow!r}")
-    reject_unported(test_ray=test_ray, mesh=mesh,
-                    differentiable=differentiable, precomputed=precomputed,
+    reject_unported(test_ray=test_ray, mesh=mesh, precomputed=precomputed,
                     compact_slots=compact_slots, atlas=atlas)
     dev = background.data.device
     r_s = torch.as_tensor(r_s, dtype=torch.float32, device=dev)
@@ -413,7 +984,8 @@ def render_fast(
     batch = flat_px.shape
 
     if cfg.raytrace_type != FLAT:
-        fdir, fpos, status, slots, nhits = march_scene(
+        march = march_scene_diff if differentiable else march_scene
+        fdir, fpos, status, slots, nhits = march(
             origin, direction, march_px, r_s, sc, cfg, n_slots=n_slots,
             tex=tex if opaque_stop else None)
     else:

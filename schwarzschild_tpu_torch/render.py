@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from .config import resolve_device
+
 _M32 = 0xFFFFFFFF
 _INV_2_32 = 2.3283064365386963e-10  # 1 / 2^32
 
@@ -47,6 +49,7 @@ def glsl_rand(co):
 def pixel_hash_rand(width, height, seed=0, device=None):
     """Per-pixel uniform in [0, 1) from the lowbias32 hash of the pixel
     index mixed with the seed; bit-equal to the JAX package's."""
+    device = resolve_device(device)
     y = torch.arange(height, dtype=torch.int64, device=device)[:, None]
     x = torch.arange(width, dtype=torch.int64, device=device)[None, :]
     h = (y * width + x + _seed_term(seed)) & _M32
@@ -56,6 +59,7 @@ def pixel_hash_rand(width, height, seed=0, device=None):
 def tile_hash_rand(width, height, seed=0, tile=(8, 128), device=None):
     """Tile-coherent uniform in [0, 1): every pixel of one (tile_h, tile_w)
     tile carries the same hash; bit-equal to the JAX package's."""
+    device = resolve_device(device)
     th, tw = tile
     ty = torch.arange(height, dtype=torch.int64, device=device)[:, None] // th
     tx = torch.arange(width, dtype=torch.int64, device=device)[None, :] // tw

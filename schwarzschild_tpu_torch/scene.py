@@ -15,6 +15,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .config import resolve_device
+
 # Object type codes (black_hole.frag:162-171).
 OBJECT_TYPE_TEST_RAY_CURVED = -99
 OBJECT_TYPE_TEST_RAY_FLAT = -98
@@ -263,7 +265,9 @@ def box_faces(pos, axes, width, depth, height):
 def build_scene(objects: Sequence[_Primitive] = (),
                 lights: Sequence[Light] = (), device=None) -> Scene:
     """Pack dataclass objects into a :class:`Scene` of tensors on
-    ``device`` (materials deduplicated by identity, objectLoader.cpp:83-92)."""
+    ``device`` (default: the card; materials deduplicated by identity,
+    objectLoader.cpp:83-92)."""
+    device = resolve_device(device)
     materials: list[Material] = []
     mat_ids: dict[int, int] = {}
 

@@ -17,6 +17,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from .config import resolve_device
+
 
 class Texture(NamedTuple):
     """One RGBA texture: data (H, W, 4) float32 in [0, 1], row 0 = bottom."""
@@ -58,7 +60,7 @@ def _to_gl_rgba_f32(arr: np.ndarray) -> np.ndarray:
 
 def load_texture(path, device=None) -> Texture:
     return Texture(data=torch.as_tensor(_to_gl_rgba_f32(load_image(path)),
-                                        device=device))
+                                        device=resolve_device(device)))
 
 
 def from_array(arr, device=None) -> Texture:
@@ -68,13 +70,14 @@ def from_array(arr, device=None) -> Texture:
         arr = np.concatenate(
             [arr, np.ones(arr.shape[:-1] + (1,), np.float32)], -1)
     return Texture(data=torch.as_tensor(np.ascontiguousarray(arr),
-                                        device=device))
+                                        device=resolve_device(device)))
 
 
 def stack_textures(raw_images: Sequence[np.ndarray],
                    device=None) -> TextureStack:
     """Pack top-down uint8 (H, W, C) images into a padded GL-convention
     stack."""
+    device = resolve_device(device)
     max_h = max(im.shape[0] for im in raw_images)
     max_w = max(im.shape[1] for im in raw_images)
     data = np.zeros((len(raw_images), max_h, max_w, 4), np.float32)

@@ -111,9 +111,112 @@ def test_wrappers_refuse_non_contiguous_input(dev):
 def test_render_fast_on_card_matches_cpu(dev, raytrace_type):
     cfg = sp.RenderConfig(width=64, height=36, percent_black=0.5,
                           raytrace_type=raytrace_type, crosshair=True)
-    args = [configs.demo_scene(), configs.demo_camera(), cfg,
-            configs.background_texture(), configs.demo_texture_stack()]
+    args = [configs.demo_scene(device="cpu"), configs.demo_camera(device="cpu"),
+            cfg, configs.background_texture(device="cpu"),
+            configs.demo_texture_stack(device="cpu")]
     cpu = sp.render_fast(*args)
     gpu = sp.render_fast(*[sp.to_device(a, dev) for a in args]).cpu()
     ok = ((gpu - cpu).abs().amax(-1) < 2e-3).float().mean().item()
     assert ok >= 0.995, ok
+
+
+def _bwd_inputs(dev, W, H, n_slots, seed=0):
+    """Demo rays marched by the forward kernel with its event planes, and
+    random cotangents for every differentiable output."""
+    o, d, active = _rays(dev, W, H, drop=0.1)
+    cfg = sp.RenderConfig(width=W, height=H, percent_black=-1.0)
+    out = kernel_scene.march_scene(o, d, active, 1.0,
+                                   configs.demo_scene(device=dev), cfg,
+                                   n_slots, configs.demo_texture_stack(
+                                       device=dev), events=True)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    cts = (rnd(H, W, 3), rnd(H, W, 3),
+           [(rnd(H, W, 3), rnd(H, W, 3), rnd(H, W)) for _ in range(n_slots)])
+    return o, d, cfg, out, cts
+
+
+def _assert_adjoint_close(got, ref):
+    """tests/test_adjoint.py's rule: per output max |diff| <= 2e-3 of the
+    plain version's max |value|; g_r_s within 2e-3 relative."""
+    for a, b in zip(got[:2], ref[:2]):
+        assert bool(torch.isfinite(a).all())
+        assert (a - b).abs().max().item() <= 2e-3 * b.abs().max().item()
+    assert abs(got[2].item() - ref[2].item()) <= 2e-3 * abs(ref[2].item())
+
+
+@pytest.mark.parametrize("n_slots", [4, 0])
+def test_march_scene_bwd_kernel_matches_plain(dev, n_slots):
+    o, d, cfg, out, cts = _bwd_inputs(dev, 160, 90, n_slots)
+    before = kernel_scene.march_scene_bwd.launches
+    got = kernel_scene.march_scene_bwd(o, d, 1.0, cfg, cts, out[2], out[5],
+                                       n_slots)
+    torch.cuda.synchronize()
+    assert kernel_scene.march_scene_bwd.launches == before + 1
+    ref = kernel_scene.march_scene_bwd_torch(o, d, 1.0, cfg, cts, out[2],
+                                             out[5], n_slots)
+    _assert_adjoint_close(got, ref)
+
+
+def test_march_bh_events_and_adjoint_match_plain(dev):
+    o, d, active = _rays(dev, 128, 96, drop=0.1)
+    cfg = sp.RenderConfig(width=128, height=96, percent_black=-1.0)
+    fdir, status, ev, steps = kernel.march_bh(o, d, active, 1.0, cfg,
+                                              events=True, count_steps=True)
+    pf, ps, pev = kernel.march_bh_torch(o, d, active, 1.0, cfg, events=True)
+    same = status == ps
+    _agree(status, ps)
+    assert torch.equal(ev["t_end"][same], pev["t_end"][same])
+    assert torch.equal(ev["died_moving"][same], pev["died_moving"][same])
+    assert int(steps) == int(kernel.steps_of(ev["t_end"], cfg.max_steps))
+    ct = torch.randn(o.shape, generator=torch.Generator().manual_seed(0)
+                     ).to(dev)
+    args = (o, d, 1.0, cfg, (ct, torch.zeros_like(o), []), None,
+            dict(t_end=ev["t_end"], ssteps=[], died_moving=ev["died_moving"]))
+    _assert_adjoint_close(kernel_scene.march_scene_bwd(*args, n_slots=0),
+                          kernel_scene.march_scene_bwd_torch(*args,
+                                                             n_slots=0))
+
+
+def test_march_scene_events_match_plain(dev):
+    o, d, active = _rays(dev, 160, 90, drop=0.2)
+    cfg = sp.RenderConfig(width=160, height=90, percent_black=-1.0)
+    sc = configs.demo_scene(device=dev)
+    got = kernel_scene.march_scene(o, d, active, 1.0, sc, cfg, 3,
+                                   events=True, count_steps=True)
+    ref = kernel_scene.march_scene_torch(o, d, active, 1.0, sc, cfg, 3,
+                                         events=True)
+    same = (got[2] == ref[2]) & (got[4] == ref[4])
+    assert same.float().mean().item() >= 0.999
+    assert torch.equal(got[5]["t_end"][same], ref[5]["t_end"][same])
+    for a, b in zip(got[5]["ssteps"], ref[5]["ssteps"]):
+        assert torch.equal(a[same], b[same])
+    assert int(got[6]) == int(kernel.steps_of(got[5]["t_end"], cfg.max_steps))
+
+
+def test_gradient_frame_launches_adjoint_and_matches_cpu(dev):
+    cfg = sp.RenderConfig(width=48, height=32, percent_black=-1.0)
+    w = torch.rand((32, 48, 4), generator=torch.Generator().manual_seed(0))
+
+    def grads(device):
+        cam = configs.demo_camera(device=device)
+        pos = cam.pos.clone().requires_grad_(True)
+        r_s = torch.tensor(1.0, device=device, requires_grad=True)
+        img = sp.render_fast(configs.demo_scene(device=device),
+                             cam._replace(pos=pos), cfg,
+                             configs.background_texture(device=device),
+                             configs.demo_texture_stack(device=device), r_s,
+                             overflow="ignore", differentiable=True)
+        return torch.autograd.grad((img * w.to(device)).sum(), [r_s, pos])
+
+    before = kernel_scene.march_scene_bwd.launches
+    gpu = grads(dev)
+    torch.cuda.synchronize()
+    assert kernel_scene.march_scene_bwd.launches == before + 1
+    cpu = grads("cpu")
+    for a, b in zip(gpu, cpu):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-2, atol=1e-3)

@@ -48,10 +48,10 @@ def demo():
     j = dict(scene=jconfigs.demo_scene(), cam=jconfigs.demo_camera(),
              bg=jconfigs.background_texture(),
              tex=jconfigs.demo_texture_stack())
-    t = dict(scene=convert.scene(_np(j["scene"])),
-             cam=convert.camera(_np(j["cam"])),
-             bg=convert.texture(_np(j["bg"])),
-             tex=convert.texture_stack(_np(j["tex"])))
+    t = dict(scene=convert.scene(_np(j["scene"]), device="cpu"),
+             cam=convert.camera(_np(j["cam"]), device="cpu"),
+             bg=convert.texture(_np(j["bg"]), device="cpu"),
+             tex=convert.texture_stack(_np(j["tex"]), device="cpu"))
     return j, t
 
 
@@ -97,7 +97,7 @@ def test_pixel_grid_and_rays(demo, size):
     j, t = demo
     W, H = size
     ju, jv = jcam.pixel_grid(W, H)
-    tu, tv = tcam.pixel_grid(W, H)
+    tu, tv = tcam.pixel_grid(W, H, device="cpu")
     np.testing.assert_allclose(tu.numpy(), np.asarray(ju), rtol=0, atol=1e-6)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=0, atol=1e-6)
     jo, jd = jcam.generate_rays(j["cam"], ju, jv, W, H)
@@ -151,9 +151,9 @@ def test_quaternion_frames_match():
 def test_pixel_hash_bit_equal(seed):
     ref = jrender.pixel_hash_rand_np(53, 29, seed)
     np.testing.assert_array_equal(
-        trender.pixel_hash_rand(53, 29, seed).numpy(), ref)
+        trender.pixel_hash_rand(53, 29, seed, device="cpu").numpy(), ref)
     np.testing.assert_array_equal(
-        trender.pixel_hash_rand(53, 29, seed).numpy(),
+        trender.pixel_hash_rand(53, 29, seed, device="cpu").numpy(),
         np.asarray(jrender.pixel_hash_rand(53, 29, seed)))
 
 
@@ -162,23 +162,23 @@ def test_pixel_hash_bit_equal(seed):
 def test_tile_hash_bit_equal(seed, tile):
     ref = jrender.tile_hash_rand_np(300, 40, seed, tile)
     np.testing.assert_array_equal(
-        trender.tile_hash_rand(300, 40, seed, tile).numpy(), ref)
+        trender.tile_hash_rand(300, 40, seed, tile, device="cpu").numpy(), ref)
 
 
 @pytest.mark.parametrize("name", ["demo_scene", "_orbiting_planets_scene"])
 def test_converted_scene_equals_port_build(name):
     ref = _np(getattr(jconfigs, name)())
-    port = getattr(tconfigs, name)()
+    port = getattr(tconfigs, name)(device="cpu")
     # quat_to_axes(angle_axis(...)) runs sin/cos in f32 on both sides.
     _assert_tree_close(ref, port, name, atol=1e-6)
-    _assert_tree_close(ref, convert.scene(ref), name)
+    _assert_tree_close(ref, convert.scene(ref, device="cpu"), name)
 
 
 @pytest.mark.parametrize("name", ["demo_texture_stack", "planet_texture_stack",
                                   "background_texture", "demo_camera"])
 def test_converted_assets_equal_port_build(name):
     ref = _np(getattr(jconfigs, name)())
-    port = getattr(tconfigs, name)()
+    port = getattr(tconfigs, name)(device="cpu")
     fields = [f for f in port._fields]
     _assert_tree_close(type(port)(*(getattr(ref, f) for f in fields)), port,
                        name, atol=1e-7)
@@ -187,7 +187,7 @@ def test_converted_assets_equal_port_build(name):
 @pytest.mark.parametrize("name", ["config2_curved", "config3_full_scene"])
 def test_config_bundles_equal_port_build(name):
     ref = getattr(jconfigs, name)()
-    port = getattr(tconfigs, name)()
+    port = getattr(tconfigs, name)(device="cpu")
     assert sorted(port) == sorted(ref)
     assert dataclasses.asdict(port["cfg"]) == dataclasses.asdict(ref["cfg"])
     assert (port["tex"] is None) == (ref["tex"] is None)
@@ -211,7 +211,7 @@ def test_render_config_converts():
 def test_texture_with_mips_is_rejected(demo):
     j, _ = demo
     with pytest.raises(NotImplementedError):
-        convert.texture(_np(jtex.with_mips(j["bg"])))
+        convert.texture(_np(jtex.with_mips(j["bg"])), device="cpu")
 
 
 def _uv(n, seed):
@@ -307,7 +307,7 @@ def test_get_background_matches(demo, seeded_rays):
 def test_crosshair_mask_matches():
     ju, jv = jcam.pixel_grid(64, 48)
     ref = np.asarray(jshade.crosshair_mask(ju, jv, 64, 48))
-    tu, tv = tcam.pixel_grid(64, 48)
+    tu, tv = tcam.pixel_grid(64, 48, device="cpu")
     got = tshade.crosshair_mask(tu, tv, 64, 48).numpy()
     np.testing.assert_array_equal(got, ref)
     assert ref.any()

@@ -136,9 +136,9 @@ def sky_frame(request):
 
 def test_render_horizon_sky_matches_pallas(sky_frame):
     cfg, r_s, cam, bg, ref = sky_frame
-    got = tkernel.render_horizon_sky(convert.camera(_np(cam)),
+    got = tkernel.render_horizon_sky(convert.camera(_np(cam), device="cpu"),
                                      convert.render_config(cfg),
-                                     convert.texture(_np(bg)), r_s)
+                                     convert.texture(_np(bg), device="cpu"), r_s)
     assert got.shape == ref.shape and torch.isfinite(got).all()
     frame_close(ref, got.numpy())
 
@@ -146,12 +146,13 @@ def test_render_horizon_sky_matches_pallas(sky_frame):
 def test_render_horizon_sky_rejects_unported_options():
     cfg = st.RenderConfig(width=8, height=8)
     cam, bg = jconfigs.demo_camera(), jconfigs.background_texture()
-    args = (convert.camera(_np(cam)), convert.render_config(cfg),
-            convert.texture(_np(bg)))
-    with pytest.raises(NotImplementedError):
-        tkernel.render_horizon_sky(*args, differentiable=True)
+    args = (convert.camera(_np(cam), device="cpu"), convert.render_config(cfg),
+            convert.texture(_np(bg), device="cpu"))
     with pytest.raises(NotImplementedError):
         tkernel.render_horizon_sky(*args, mesh=object())
+    # differentiable= is ported: the same frame, now with a graph.
+    img = tkernel.render_horizon_sky(*args, differentiable=True)
+    assert torch.equal(img, tkernel.render_horizon_sky(*args))
 
 
 def test_prng_noise_is_refused():

@@ -49,10 +49,10 @@ def demo():
     j = dict(scene=jconfigs.demo_scene(), cam=jconfigs.demo_camera(),
              bg=jconfigs.background_texture(),
              tex=jconfigs.demo_texture_stack())
-    t = dict(scene=convert.scene(_np(j["scene"])),
-             cam=convert.camera(_np(j["cam"])),
-             bg=convert.texture(_np(j["bg"])),
-             tex=convert.texture_stack(_np(j["tex"])))
+    t = dict(scene=convert.scene(_np(j["scene"]), device="cpu"),
+             cam=convert.camera(_np(j["cam"]), device="cpu"),
+             bg=convert.texture(_np(j["bg"]), device="cpu"),
+             tex=convert.texture_stack(_np(j["tex"]), device="cpu"))
     return j, t
 
 
@@ -188,9 +188,14 @@ def test_render_fast_overflow_modes(demo):
 def test_render_fast_rejects_unported_options(demo, option):
     _, t = demo
     cfg = sp.RenderConfig(width=8, height=8, percent_black=-1.0)
+    args = (t["scene"], t["cam"], cfg, t["bg"], t["tex"])
+    if option == "differentiable":
+        # Ported since: the same frame, now with a graph.
+        assert torch.equal(tks.render_fast(*args, differentiable=True),
+                           tks.render_fast(*args))
+        return
     with pytest.raises(NotImplementedError, match=option):
-        tks.render_fast(t["scene"], t["cam"], cfg, t["bg"], t["tex"],
-                        **{option: True})
+        tks.render_fast(*args, **{option: True})
 
 
 def test_trilinear_filter_is_refused(demo):
