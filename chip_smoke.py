@@ -11,14 +11,18 @@ Phases, one printed line each (any failure raises, so the exit code is not
      512x512 (status agreement, fdir error, the event record, kernel and
      plain ms, executed steps and the bound);
   3. march_scene: the same on demo-scene rays at 1280x720 with 4 slots
-     (status, nhits, fdir, fpos, slot planes; t_end and sstep_k exactly);
+     (status, nhits, fdir, fpos, slot planes; t_end and sstep_k exactly),
+     with the kernel's ray mapping and launch shape and the exact row
+     tests a step that the cull lets through (counted on the plain run;
+     tools/warp_mapping.py compares the ray mappings);
   4. frames: the forward path, render_fast (demo scene, 1280x720, 4 slots)
      and render_horizon_sky (config 2, 512x512) with the launch counters
      reset just before and read just after, then their times, then small
      frames rendered on the card against the same frames on the CPU;
   5. march_scene_bwd: the adjoint kernel against its plain version at
      1280x720, both fed the forward kernel's events and the same random
-     cotangents (ms, scratch bytes, ptxas registers and spills, the bound);
+     cotangents (ms, checkpoint interval, scratch bytes, shared memory a
+     block, ptxas registers and spills, the bound);
   6. gradient_frames: the gradient path, the gradient of
      sum(render_fast(differentiable=True) * w) at 1280x720 with respect to
      r_s, cam.pos and the background texels, and the same for
@@ -41,15 +45,22 @@ within 2e-3 of the plain version's largest |value| per output and its r_s
 gradient within 2e-3 relative (tests/test_adjoint.py's rule).  A frame on
 the card must match the CPU frame within 2e-3 on at least 99.5% of pixels;
 gradients within rtol 2e-2, atol 1e-3 (tests/test_kernel_scene.py's rule).
-Times are CUDA-event medians of 10 runs after 2 warm-up runs (plain
-versions: 3 after 1).
+A kernel's time (``ms``) is its wrapper's whole call, host work included,
+and the other times are CUDA-event medians of 10 runs after 2 warm-up
+runs (plain versions: 3 after 1); ``device_ms`` is the kernel alone, its
+device time from torch.profiler, the median of 20 launches after 3 warm-up
+calls, or null where the profiler lost the launches.
 
 Bounds: the least time an H100 SXM could take for a kernel's work, the
 larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its f32 operations over 67 TFLOP/s.  Operations are counted
 per step from csrc/ on the common path (no far-field re-entry; sinf and
 cosf one each, so the count is low and the bound stays a bound) and
-multiplied by the steps these inputs executed (count_steps).
+multiplied by the steps these inputs executed (count_steps).  The scene
+march's table work is what its culled design needs at these inputs,
+counted lane by lane on the plain run (CullCount): the cull's tests and
+the exact tests of the rows they let through; the full-table count (every
+row's exact test on every step) is printed beside it.
 """
 
 from __future__ import annotations
@@ -69,10 +80,18 @@ F32_OPS_PER_S = 67e12
 # the horizon sphere_entry 24, the capture test 1.
 OPS_BH_STEP = 118
 # The scene step: the same 118, the window and select 3, the hit logic 4,
-# and per table row (segment_min_dist) the test and the fold.
+# and per table row (segment_min_dist) the exact test and the fold.  The
+# cull adds the segment's grown midpoint once a step (7) and 11 a bound
+# test (|m - c|^2 <= (R + hl)^2): the scene's on every step, a group's
+# where the scene's passed, a row's of a box where its group's passed; and
+# 6 a cylinder's axis_parallel test where its group's did not pass (its
+# first half: the second runs only on segments within 2e-6 of the axis).
 OPS_SCENE_STEP = 125
 OPS_ROW = {"spheres": 35, "planes": 26, "disks": 41, "hollow": 42,
            "cylinders": 81, "rects": 49}
+OPS_MID = 7
+OPS_REACH = 11
+OPS_PARALLEL = 6
 # The adjoint's work is each step's forward once (diff_step 92: the
 # far-field test and rk4_segment) and its reverse once (184, the reverse
 # half of diff_step_vjp), plus one compare per slot; per ray, the init 56
@@ -116,6 +135,32 @@ def cuda_ms(fn, warmup=2, reps=10):
     return statistics.median(times)
 
 
+def device_ms(fn, name, reps=20, tries=3):
+    """Median device time (ms) of the kernel whose name holds ``name``, one
+    launch per call of ``fn``, from torch.profiler: the kernel alone,
+    without the wrapper's host work (which cuda_ms counts where the card
+    waits for it).  The profiler can lose a run's kernel events, some or
+    all: a run that shows fewer than half the launches is taken again, and
+    after ``tries`` such runs the result is None."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.device_time_total for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and name in e.name]
+        if 2 * len(times) >= reps:
+            return statistics.median(times) / 1e3
+    return None
+
+
 def rays(cam, W, H, dev):
     """Origins, directions and the march's active mask of cam's W x H
     pixels on dev, as the frames build them."""
@@ -157,6 +202,51 @@ def agreement(kernel_out, plain_out):
         ok = ok & lane_ok
     within = (ok.sum() / same.sum().clamp_min(1)).item()
     return share, max_err, within, same
+
+
+class CullCount:
+    """An on_segment hook for the plain scene march that counts the table
+    work of the culled kernel: f32 operations summed over the lane-steps
+    that run table tests (``lane_ops``; ``steps`` counts those lane-steps:
+    a step that escapes or finishes flat runs none), and the exact row
+    tests the cull let through (``exact``).  ``work`` lists one step's
+    tests with the lanes that need each (tools/warp_mapping.py costs them
+    per warp)."""
+
+    def __init__(self, tables, bounds):
+        from schwarzschild_tpu_torch import kernel_scene
+
+        self.cull = lambda *seg: kernel_scene.segment_cull_torch(
+            tables, bounds, *seg)
+        self.groups = bounds["groups"]
+        self.n_planes = len(tables.get("planes", ()))
+        self.steps = self.exact = self.lane_ops = 0
+
+    def work(self, live, *seg):
+        """([(lanes, ops)] of one step's plane and cull tests, [(lanes,
+        ops)] of its exact tests of bounded rows)."""
+        c = self.cull(*seg)
+        tests = [(live, OPS_ROW["planes"])] * self.n_planes
+        exact = []
+        if c["scene"] is None:
+            return tests, exact
+        tests.append((live, OPS_MID + OPS_REACH))
+        for (name, first, count, _), in_group in zip(self.groups,
+                                                     c["groups"]):
+            tests.append((live & c["scene"], OPS_REACH))
+            if name == "cylinders":
+                tests.append((live & ~in_group, OPS_PARALLEL))
+            elif count > 1:
+                tests += [(live & in_group, OPS_REACH)] * count
+            exact += [(live & m, OPS_ROW[name])
+                      for m in c["rows"][name][first:first + count]]
+        return tests, exact
+
+    def __call__(self, live, *seg):
+        tests, exact = self.work(live, *seg)
+        self.steps += int(live.sum())
+        self.exact += sum(int(m.sum()) for m, _ in exact)
+        self.lane_ops += sum(int(m.sum()) * ops for m, ops in tests + exact)
 
 
 def require(cond, what):
@@ -278,16 +368,19 @@ def main() -> int:
         and torch.equal(k[2]["died_moving"][same], p[2]["died_moving"][same]))
     steps = int(k[3])
     ms = cuda_ms(lambda: kernel.march_bh(o, d, act, 1.0, cfg2))
+    dev_ms = device_ms(lambda: kernel.march_bh(o, d, act, 1.0, cfg2),
+                       "march_bh_kernel")
     plain_ms = cuda_ms(lambda: kernel.march_bh_torch(o, d, act, 1.0, cfg2),
                        warmup=1, reps=3)
     n = act.numel()
     b_ms, b_by = bound(41 * n, OPS_BH_STEP * steps + OPS_INIT * n)
-    results["march_bh"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=b_ms, bound_by=b_by)
+    results["march_bh"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by)
     log("march_bh", shape=[cfg2.height, cfg2.width], status_agree=share,
         fdir_max_abs_err=err, within_tol=within, events_equal=events_equal,
-        ms=ms, plain_ms=plain_ms, executed_steps=steps, bound_ms=b_ms,
-        bound_by=b_by, captured=int((k[1] == 1.0).sum()))
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, executed_steps=steps,
+        bound_ms=b_ms, bound_by=b_by, captured=int((k[1] == 1.0).sum()))
     require(share >= 0.999, f"march_bh status agreement {share}")
     require(within >= 0.999, f"march_bh fdir agreement {within}")
     require(events_equal, "march_bh event record differs from plain")
@@ -310,8 +403,12 @@ def main() -> int:
 
     kout = kernel_scene.march_scene(o, d, act, 1.0, sc, cfg, 4, tex,
                                     events=True, count_steps=True)
-    pout = kernel_scene.march_scene_torch(o, d, act, 1.0, sc, cfg, 4, tex,
-                                          events=True)
+    tables = kernel_scene._pack_scene_smem(sc, tex)
+    counted = CullCount(tables, kernel_scene._row_bounds(
+        tables, 6 * sc.boxes.mat_idx.shape[0]))
+    pout = kernel_scene._as_outputs(kernel_scene._march_scene_planes_torch(
+        o, d, act, 1.0, sc, cfg, 4, tex, on_segment=counted), True, False,
+        cfg)
     torch.cuda.synchronize()
     share, err, within, same = agreement(flat(kout), flat(pout))
     events_equal = torch.equal(kout[5]["t_end"][same],
@@ -319,26 +416,51 @@ def main() -> int:
         torch.equal(a[same], b[same])
         for a, b in zip(kout[5]["ssteps"], pout[5]["ssteps"]))
     steps = int(kout[6])
-    ms = cuda_ms(lambda: kernel_scene.march_scene(o, d, act, 1.0, sc, cfg, 4,
-                                                  tex))
+    ms = cuda_ms(lambda: kernel_scene.march_scene(o, d, act, 1.0, sc, cfg,
+                                                  4, tex))
     ms_events = cuda_ms(lambda: kernel_scene.march_scene(
         o, d, act, 1.0, sc, cfg, 4, tex, events=True))
+    dev_ms = device_ms(lambda: kernel_scene.march_scene(
+        o, d, act, 1.0, sc, cfg, 4, tex), "march_scene_kernel")
     plain_ms = cuda_ms(lambda: kernel_scene.march_scene_torch(
         o, d, act, 1.0, sc, cfg, 4, tex), warmup=1, reps=3)
-    tables = kernel_scene._pack_scene_smem(sc, tex)
     n = act.numel()
-    ops_step = OPS_SCENE_STEP + sum(OPS_ROW[name] * len(rows)
-                                    for name, rows in tables.items())
+    full_table_ops = sum(OPS_ROW[name] * len(rows)
+                         for name, rows in tables.items())
+    ops_step = OPS_SCENE_STEP + counted.lane_ops / steps
     b_ms, b_by = bound((25 + 32 + 28 * 4) * n,
-                       ops_step * steps + OPS_INIT * n)
-    results["march_scene"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=b_ms, bound_by=b_by)
+                       OPS_SCENE_STEP * steps + counted.lane_ops
+                       + OPS_INIT * n)
+    full_ms, _ = bound((25 + 32 + 28 * 4) * n,
+                       (OPS_SCENE_STEP + full_table_ops) * steps
+                       + OPS_INIT * n)
+    results["march_scene"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                                  plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by)
     counts = {str(c): int((kout[2] == c).sum()) for c in range(5)}
+    design = _ext.DESIGN
+    words = kernel_scene._kernel_buffer(
+        tables, 6 * sc.boxes.mat_idx.shape[0])[0].size
     log("march_scene", shape=[cfg.height, cfg.width], n_slots=4,
         status_nhits_agree=share, max_abs_err=err, within_tol=within,
-        events_equal=bool(events_equal), ms=ms, ms_with_events=ms_events,
-        plain_ms=plain_ms, executed_steps=steps, ops_per_step=ops_step,
-        bound_ms=b_ms, bound_by=b_by, status_counts=counts,
+        events_equal=bool(events_equal),
+        every_lane_equal=bool(share == 1.0 and err == 0.0 and events_equal),
+        ms=ms, ms_with_events=ms_events, device_ms=dev_ms, plain_ms=plain_ms,
+        launch=dict(threads=design["SCENE_THREADS"],
+                    warp_tile=[design["TILE_ROWS"],
+                               32 // design["TILE_ROWS"]],
+                    table_words=words,
+                    tables=("shared memory, copied once a block"
+                            if words <= kernel_scene.SHARED_TABLE_WORDS
+                            else "device memory"),
+                    ptxas=ptxas.get("march_scene_kernel", "not rebuilt")),
+        executed_steps=steps, table_tested_steps=counted.steps,
+        exact_row_tests_per_step=counted.exact / steps,
+        table_rows=sum(len(r) for r in tables.values()),
+        table_ops_per_step=dict(full_table=full_table_ops,
+                                culled_per_lane=counted.lane_ops / steps),
+        ops_per_step=ops_step, bound_ms=b_ms, bound_by=b_by,
+        full_table_bound_ms=full_ms, status_counts=counts,
         max_nhits=int(kout[4].max()))
     require(share >= 0.999, f"march_scene status/nhits agreement {share}")
     require(within >= 0.999, f"march_scene float agreement {within}")
@@ -402,22 +524,36 @@ def main() -> int:
     rs_err = abs(got[2].item() - ref[2].item()) / abs(ref[2].item())
     finite = all(bool(torch.isfinite(x).all()) for x in got)
     ms = cuda_ms(lambda: kernel_scene.march_scene_bwd(*bwd_args))
+    dev_ms = device_ms(lambda: kernel_scene.march_scene_bwd(*bwd_args),
+                       "march_scene_bwd_kernel")
     plain_ms = cuda_ms(lambda: kernel_scene.march_scene_bwd_torch(*bwd_args),
                        warmup=1, reps=3)
     scratch = kernel_scene.bwd_scratch_bytes(cfg, n)
+    saves_every_step = cfg.max_steps * 15 * n * 4
     b_ms, b_by = bound((81 + 32 * 4) * n,
                        (OPS_BWD_STEP + 4) * steps
                        + (OPS_INIT + OPS_INIT_VJP) * n)
     results["march_scene_bwd"] = dict(
         max_abs_err=max((a - b).abs().max().item()
                         for a, b in zip(got[:2], ref[:2])),
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by)
     log("march_scene_bwd", shape=[H, W], n_slots=4,
         rel_err_origin=errs[0], rel_err_direction=errs[1], rel_err_r_s=rs_err,
         max_abs_err=results["march_scene_bwd"]["max_abs_err"], ms=ms,
-        plain_ms=plain_ms, scratch_bytes=scratch, executed_steps=steps,
-        bound_ms=b_ms, bound_by=b_by,
+        device_ms=dev_ms, plain_ms=plain_ms,
+        checkpoint_every=kernel_scene.BWD_CHECKPOINT_EVERY,
+        scratch_bytes=scratch,
+        scratch_bytes_saving_every_step=saves_every_step,
+        threads=design["BWD_THREADS"],
+        shared_bytes_per_block=(kernel_scene.BWD_CHECKPOINT_EVERY
+                                * len(kernel_scene._CORE)
+                                * design["BWD_THREADS"] * 4),
+        executed_steps=steps, bound_ms=b_ms, bound_by=b_by,
         ptxas=ptxas.get("march_scene_bwd_kernel", "library not rebuilt"))
+    require(scratch * 4 <= saves_every_step,
+            f"adjoint scratch {scratch} B is over a quarter of "
+            f"{saves_every_step}")
     require(finite, "march_scene_bwd gave non-finite gradients")
     require(max(errs) <= 2e-3 and rs_err <= 2e-3,
             f"march_scene_bwd vs plain: {errs}, r_s {rs_err}")

@@ -24,11 +24,18 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 
+# The kernels' compile-time design, passed to nvcc as -D macros: csrc/
+# reads them from there, the wrappers and reports from here.  The scene
+# kernel's threads a block and its warp tile's rows (a warp marches
+# TILE_ROWS x 32 / TILE_ROWS pixels); the adjoint's threads a block and its
+# checkpoint interval (it saves a ray's core at every BWD_CKPT-th step).
+DESIGN = dict(SCENE_THREADS=128, TILE_ROWS=4, BWD_THREADS=64, BWD_CKPT=8)
+
 # -fmad=false: no a*b+c contraction, so the kernels round like the plain
 # versions and the JAX reference (see csrc/march_common.cuh).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-Xptxas", "-v") + tuple(f"-D{k}={v}" for k, v in DESIGN.items())
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,7 +45,8 @@ _F = ctypes.c_float
 _MARCH = [_I, _F, _I, _F, _F, _F, _P]
 _SIGNATURES = {
     "march_bh_launch": [_P] * 7 + _MARCH,
-    "march_scene_launch": [_P] * 4 + [_I] * 6 + [_P] * 9 + [_I] + _MARCH,
+    "march_scene_launch": ([_P] * 4 + [_I] * 6 + [_F] + [_I] * 2
+                           + [_P] * 9 + [_I] + _MARCH),
     "march_scene_bwd_launch": [_P] * 10 + [_I] + [_P] * 4 + _MARCH,
 }
 

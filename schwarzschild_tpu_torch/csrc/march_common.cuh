@@ -244,8 +244,11 @@ struct CoreCt {
   float px, py, pz, dx, dy, dz, nx, ny, nz, tx, ty, tz, u, du, phi;
 };
 
-// Saves are laid out [step][field][ray], so a warp's stores and loads of
-// one field at one step touch consecutive addresses.
+// A store of cores is laid out [step][field][ray] (n rays): a warp's
+// stores and loads of one field at one step touch consecutive addresses.
+// The adjoint keeps its checkpoints so in device memory and the steps of
+// one checkpoint interval so in shared memory (n = the block's threads,
+// idx = the thread: conflict-free banks).
 __device__ __forceinline__ void core_store(const Geodesic& g, float* save,
                                            int i, int n, int idx) {
   float* s = save + (size_t)i * kCoreFields * n + idx;

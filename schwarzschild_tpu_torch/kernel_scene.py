@@ -29,6 +29,7 @@ TPU's per-index gather cost and are not part of this package.
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Optional
 
@@ -75,6 +76,14 @@ STATUS_HIT_OPAQUE = 4.0
 # (kSphereCols ... kRectCols in csrc/march.cu).
 TABLE_COLUMNS = (("spheres", 5), ("planes", 7), ("disks", 8), ("hollow", 9),
                  ("cylinders", 15), ("rects", 15))
+
+# Tables (bounds, rows, planes) of at most this many 32-bit words are
+# copied into each block's shared memory by the scene kernel; larger ones
+# are read from device memory (8% slower on the demo scene at 1280x720 on
+# an H100, tools/ab_march.py).  32 KB a block still lets 7 blocks of 128
+# threads share an SM (its registers allow 8), and stays under the 48 KB a
+# launch may ask for without an opt-in.
+SHARED_TABLE_WORDS = 8192
 
 _PRIMITIVES = ("spheres", "planes", "disks", "hollow_disks", "cylinders",
                "rectangles")
@@ -182,23 +191,17 @@ def _pack_scene_smem(sc: Scene, tex: Optional[TextureStack] = None):
     return out
 
 
-def _segment_min_dist(tables, px, py, pz, sdx, sdy, sdz, seg_len):
-    """Plain version of the kernel's segment_min_dist: the closest table hit
-    lambda within [0, seg_len] (inf if none) and the closest over the rows
-    flagged provably opaque."""
+def _row_candidates(tables, px, py, pz, sdx, sdy, sdz, seg_len):
+    """Each table row's exact test, as the kernel runs it: yields (table
+    name, row index, candidate, opaque flag), the candidate the hit lambda
+    within [0, seg_len] or inf where the row is not hit."""
     inf = float("inf")
-    best = torch.full_like(px, inf)
-    best_opq = torch.full_like(px, inf)
 
     def within(lam):
         return (lam >= 0.0) & (lam <= seg_len)
 
-    def fold(ok, lam, opq):
-        nonlocal best, best_opq
-        cand = torch.where(ok, lam, inf)
-        best = torch.minimum(best, cand)
-        if opq > 0.5:
-            best_opq = torch.minimum(best_opq, cand)
+    def cand(ok, lam):
+        return torch.where(ok, lam, inf)
 
     def plane_lam(t0, t1, t2, nxs, nys, nzs):
         denom = _dot3(nxs, nys, nzs, sdx, sdy, sdz)
@@ -209,30 +212,31 @@ def _segment_min_dist(tables, px, py, pz, sdx, sdy, sdz, seg_len):
     def sq32(x):  # an f32 product of two table values, as the kernel forms it
         return float(np.float32(x) * np.float32(x))
 
-    for r in tables.get("spheres", ()):
+    for j, r in enumerate(tables.get("spheres", ())):
         t = [float(x) for x in r]
         ok, lam = _sphere_entry(px, py, pz, sdx, sdy, sdz, sq32(r[3]),
                                 t[0], t[1], t[2])
-        fold(ok & within(lam), lam, t[4])
-    for r in tables.get("planes", ()):
+        yield "spheres", j, cand(ok & within(lam), lam), t[4]
+    for j, r in enumerate(tables.get("planes", ())):
         t = [float(x) for x in r]
-        fold(*plane_lam(*t[:6]), t[6])
-    for r in tables.get("disks", ()):
+        yield "planes", j, cand(*plane_lam(*t[:6])), t[6]
+    for j, r in enumerate(tables.get("disks", ())):
         t = [float(x) for x in r]
         ok, lam = plane_lam(*t[:6])
         hx = px + lam * sdx - t[0]
         hy = py + lam * sdy - t[1]
         hz = pz + lam * sdz - t[2]
-        fold(ok & (_dot3(hx, hy, hz, hx, hy, hz) <= t[6]), lam, t[7])
-    for r in tables.get("hollow", ()):
+        yield "disks", j, cand(ok & (_dot3(hx, hy, hz, hx, hy, hz) <= t[6]),
+                               lam), t[7]
+    for j, r in enumerate(tables.get("hollow", ())):
         t = [float(x) for x in r]
         ok, lam = plane_lam(*t[:6])
         hx = px + lam * sdx - t[0]
         hy = py + lam * sdy - t[1]
         hz = pz + lam * sdz - t[2]
         sq = _dot3(hx, hy, hz, hx, hy, hz)
-        fold(ok & (sq >= t[6]) & (sq <= t[7]), lam, t[8])
-    for r in tables.get("cylinders", ()):
+        yield "hollow", j, cand(ok & (sq >= t[6]) & (sq <= t[7]), lam), t[8]
+    for j, r in enumerate(tables.get("cylinders", ())):
         t = [float(x) for x in r]
         rx, ry, rz = px - t[0], py - t[1], pz - t[2]
         lox = _dot3(t[3], t[4], t[5], rx, ry, rz)
@@ -258,8 +262,9 @@ def _segment_min_dist(tables, px, py, pz, sdx, sdy, sdz, seg_len):
                                        torch.where(lam2 > 0, lam2, -1.0)))
         lam = torch.where(in1 & in2, both,
                           torch.where(in1, lam1, torch.where(in2, lam2, -1.0)))
-        fold((disc >= 0.0) & (in1 | in2) & within(lam), lam, t[14])
-    for r in tables.get("rects", ()):
+        yield "cylinders", j, cand((disc >= 0.0) & (in1 | in2) & within(lam),
+                                   lam), t[14]
+    for j, r in enumerate(tables.get("rects", ())):
         t = [float(x) for x in r]
         ok, lam = plane_lam(t[0], t[1], t[2], t[6], t[7], t[8])
         hx = px + lam * sdx - t[0]
@@ -269,8 +274,261 @@ def _segment_min_dist(tables, px, py, pz, sdx, sdy, sdz, seg_len):
         beta = _dot3(t[9], t[10], t[11], hx, hy, hz)
         ok = (ok & (alpha >= 0.0) & (alpha <= t[12]) & (beta >= 0.0)
               & (beta <= t[13]))
-        fold(ok, lam, t[14])
+        yield "rects", j, cand(ok, lam), t[14]
+
+
+def _segment_min_dist(tables, px, py, pz, sdx, sdy, sdz, seg_len):
+    """Plain version of the kernel's segment_min_dist: the closest table hit
+    lambda within [0, seg_len] (inf if none) and the closest over the rows
+    flagged provably opaque."""
+    best = torch.full_like(px, float("inf"))
+    best_opq = best
+    for _, _, cand, opq in _row_candidates(tables, px, py, pz, sdx, sdy, sdz,
+                                           seg_len):
+        best = torch.minimum(best, cand)
+        if opq > 0.5:
+            best_opq = torch.minimum(best_opq, cand)
     return best, best_opq
+
+
+# ---------------------------------------------------------------------------
+# The cull of the table tests.  Every row but a plane's lies inside a sphere
+# (its bound), a box's six faces inside one more (their group's), and every
+# bounded row inside one for the whole scene.  A segment from p along the
+# unit direction sd of length L lies inside the ball of radius hl about
+# m = p + hl sd for any hl >= L/2, so a row it hits has
+# |m - c| <= R + hl: a segment that fails that test for the scene, its
+# group or its row has no exact hit there, and the kernel skips the row's
+# exact test (a skipped row folds inf, as its exact test would).
+#
+# The margins keep the test conservative under f32 rounding.  An exact test
+# accepts a point that is off its primitive by rounding: a few ulps of the
+# coordinates in play (|p|, |c|, L), and near a tangent a quadric's root
+# moves by up to about sqrt(eps) of them (the discriminant's rounding
+# error enters under a square root).  So the bound radius grows by
+# CULL_REL of (R + |c|) plus CULL_ABS scene units (for rows of zero size at
+# the origin), and hl is L/2 grown by the same CULL_REL: sqrt(f32 eps) is
+# 3.5e-4, CULL_REL is 45 times that.  Rows with a non-finite bound (a
+# degenerate axes matrix, non-finite columns) get an infinite radius and
+# are never culled.
+#
+# One exact test accepts points off its primitive by more than rounding: a
+# cylinder's, on a segment within 1e-6 of its axis direction (dps < 1e-12,
+# where _guard replaces dps and lambda = -(a +- sq) * 1e12 lies anywhere;
+# an axis-parallel segment "hits" at lambda = 100 at any distance from the
+# axis).  No bound holds those, so the cull lets every such segment through
+# to the cylinder's exact test (_parallel: |ldx| and |ldz| below 2e-6, which
+# dps < 1e-12 needs), and the fold stays exact.  With dps >= 1e-12 the
+# clamp of the discriminant at 1e-20 moves a root by at most 1e-10 / dps,
+# off the surface by at most 1e-10 / sqrt(dps) <= 1e-4, inside CULL_ABS.
+# ---------------------------------------------------------------------------
+
+CULL_REL = 1.0 / 64.0
+CULL_ABS = 1e-3
+# hl = seg_len * CULL_HALF, one f32 product (the kernel gets it at launch).
+CULL_HALF = float(np.float32(0.5 * (1.0 + CULL_REL)))
+
+# Kernel type codes of the bounded tables (kSphere ... kRect in
+# csrc/march.cu); planes are unbounded and tested on every step.
+_BOUNDED = ("spheres", "disks", "hollow", "cylinders", "rects")
+
+
+def _f32_up(x):
+    """float64 array x rounded up to float32 values (radii that rounding
+    must not shrink), as float64."""
+    y = np.asarray(x, np.float32)
+    y = np.where(y < x, np.nextafter(y, np.float32(np.inf)), y)
+    return y.astype(np.float64)
+
+
+def _sphere_around(centres, radii):
+    """A ball around balls (centres (N, 3), radii (N,)), in float64: the
+    centre of their bounding box and the largest distance past it."""
+    c = 0.5 * (np.min(centres - radii[:, None], 0)
+               + np.max(centres + radii[:, None], 0))
+    return c, np.max(np.linalg.norm(centres - c, axis=1) + radii)
+
+
+def _table_bounds(name, table):
+    """(centres (N, 3), radii (N,), corners (N, 4, 3) or None) of a table's
+    primitives before the margins, in float64; the radius is inf where a
+    row has no finite bound (non-finite columns, a singular axes matrix).
+
+    A row's axes matrix A has its columns at t[3:6], t[6:9], t[9:12]; its
+    local offsets map to world ones through A^-T, which stretches a
+    length by at most 1 / A's smallest singular value."""
+    t = np.asarray(table, np.float64).reshape(len(table), -1)
+    ok = np.all(np.isfinite(t), 1)
+    t = np.where(ok[:, None], t, 0.0)
+    corners = None
+    if name == "spheres":
+        r = np.abs(t[:, 3])
+    elif name == "disks":
+        r = np.sqrt(np.maximum(t[:, 6], 0.0))
+    elif name == "hollow":
+        r = np.sqrt(np.maximum(t[:, 7], 0.0))
+    else:
+        a = np.stack([t[:, 3:6], t[:, 6:9], t[:, 9:12]], 2)
+        sv = np.linalg.svd(a, compute_uv=False)
+        ok &= sv[:, -1] > 1e-12 * np.maximum(sv[:, 0], 1e-30)
+        a = np.where(ok[:, None, None], a, np.eye(3))
+        inv_t = np.linalg.inv(a).transpose(0, 2, 1)
+        grow = 1.0 / np.where(ok, sv[:, -1], 1.0)
+        w, h = t[:, 12], t[:, 13]
+        zero = np.zeros_like(w)
+        if name == "cylinders":  # y in [0, height] along the second column
+            local = np.stack([zero, 0.5 * w, zero], 1)
+            r = np.hypot(0.5 * np.abs(w), np.abs(h)) * grow
+        else:  # rects: [0, width] along the first column, [0, height]
+            local = np.stack([0.5 * w, zero, 0.5 * h], 1)  # along the third
+            r = np.hypot(0.5 * w, 0.5 * h) * grow
+            quad = np.stack([np.stack([a_, zero, b_], 1) for a_ in (zero, w)
+                             for b_ in (zero, h)], 1)
+            corners = t[:, None, :3] + np.einsum("nij,nkj->nki", inv_t, quad)
+        t[:, :3] += np.einsum("nij,nj->ni", inv_t, local)
+    return t[:, :3], np.where(ok, r, np.inf), corners
+
+
+def _with_margin(c, r):
+    """Bounds (c (N, 3), r (N,)) as (cx, cy, cz, R) tuples of float32-exact
+    floats, r grown by the margins and rounded up; a non-finite bound
+    becomes (0, 0, 0, inf)."""
+    ok = np.all(np.isfinite(c), 1) & np.isfinite(r)
+    c = np.where(ok[:, None], c, 0.0)
+    c32 = c.astype(np.float32).astype(np.float64)
+    r = (r + CULL_REL * (r + np.linalg.norm(c, axis=1)) + CULL_ABS
+         + np.linalg.norm(c32 - c, axis=1))  # the centre's own rounding
+    r = np.where(ok, _f32_up(np.where(ok, r, 0.0)), np.inf)
+    return [tuple(x) for x in np.concatenate([c32, r[:, None]], 1).tolist()]
+
+
+def _row_bounds(tables, n_box_faces: int = 0):
+    """The cull's bounds of a table dict (:func:`_pack_scene_smem`):
+    {"rows": {name: [(cx, cy, cz, R)] per row}, "groups": [(name, first,
+    count, (cx, cy, cz, R))], "scene": (cx, cy, cz, R) or None}.  Each
+    bound is a centre and a radius with the margins (see CULL_REL), as
+    float32-exact floats.  A group is one row, or the six faces of a box:
+    the last ``n_box_faces`` rows of "rects", six to a box, bounded by the
+    ball around their corners (a face is the parallelogram they span).
+    Planes are unbounded and have none."""
+    rows, groups = {}, []
+    for name in _BOUNDED:
+        table = tables.get(name, ())
+        if not len(table):
+            rows[name] = []
+            continue
+        c, r, corners = _table_bounds(name, table)
+        rows[name] = _with_margin(c, r)
+        first_box = len(table) - (n_box_faces if name == "rects" else 0)
+        groups += [(name, j, 1, rows[name][j]) for j in range(first_box)]
+        for j in range(first_box, len(table), 6):
+            box = corners[j:j + 6].reshape(-1, 3)
+            if np.all(np.isfinite(r[j:j + 6])):
+                bc, br = _sphere_around(box, np.zeros(len(box)))
+            else:
+                bc, br = np.zeros(3), np.inf
+            groups.append((name, j, 6, _with_margin(bc[None],
+                                                    np.array([br]))[0]))
+    bounded = [b for name in _BOUNDED for b in rows[name]]
+    if not bounded:
+        return dict(rows=rows, groups=groups, scene=None)
+    b = np.array(bounded)
+    if np.all(np.isfinite(b[:, 3])):
+        c, r = _sphere_around(b[:, :3], b[:, 3])
+        scene = _with_margin(c[None], np.array([r]))[0]
+    else:
+        scene = (0.0, 0.0, 0.0, float("inf"))
+    return dict(rows=rows, groups=groups, scene=scene)
+
+
+def _reaches(b, mx, my, mz, hl):
+    """The cull test of one bound b = (cx, cy, cz, R): |m - c|^2 <= (R +
+    hl)^2, in csrc/march.cu's f32 operation order."""
+    ex, ey, ez = mx - b[0], my - b[1], mz - b[2]
+    reach = b[3] + hl
+    return ex * ex + ey * ey + ez * ez <= reach * reach
+
+
+def _parallel(row, sdx, sdy, sdz):
+    """Where a segment runs along a cylinder's axis (``row`` its table row):
+    |ldx| and |ldz| of its exact test below 2e-6, which holds wherever the
+    test's dps = ldx^2 + ldz^2 is below 1e-12 and its guard takes over
+    (csrc/march.cu's axis_parallel, the same f32 operations)."""
+    t = [float(x) for x in row]
+    ldx = _dot3(t[3], t[4], t[5], sdx, sdy, sdz)
+    ldz = _dot3(t[9], t[10], t[11], sdx, sdy, sdz)
+    return (torch.abs(ldx) < 2e-6) & (torch.abs(ldz) < 2e-6)
+
+
+def segment_cull_torch(tables, bounds, px, py, pz, sdx, sdy, sdz, seg_len):
+    """Plain version of the kernel's cull, level by level: {"scene": mask,
+    "groups": [mask per group], "parallel": [mask per cylinder], "rows":
+    {name: [mask per row]}}.  A row passes where the segment reaches the
+    scene's bound, its group's and, in a group of several rows, its own,
+    and a cylinder also where the segment runs along its axis; the kernel
+    runs a row's exact test only there.  ``bounds`` is
+    :func:`_row_bounds`'s of ``tables``."""
+    hl = seg_len * CULL_HALF
+    mx, my, mz = px + hl * sdx, py + hl * sdy, pz + hl * sdz
+    out = dict(scene=None, groups=[], parallel=[
+        _parallel(r, sdx, sdy, sdz) for r in tables.get("cylinders", ())],
+        rows={name: [None] * len(b) for name, b in bounds["rows"].items()})
+    if bounds["scene"] is None:
+        return out
+    out["scene"] = _reaches(bounds["scene"], mx, my, mz, hl)
+    for name, first, count, bound in bounds["groups"]:
+        in_group = out["scene"] & _reaches(bound, mx, my, mz, hl)
+        out["groups"].append(in_group)
+        for j in range(first, first + count):
+            out["rows"][name][j] = (
+                in_group if count == 1 else in_group & _reaches(
+                    bounds["rows"][name][j], mx, my, mz, hl))
+    for j, par in enumerate(out["parallel"]):
+        out["rows"]["cylinders"][j] = out["rows"]["cylinders"][j] | par
+    return out
+
+
+def _kernel_tables(tables, bounds):
+    """The table buffer march_scene_kernel reads (csrc/march.cu, "Table
+    buffer"): float32 words, integer fields as int32 bit patterns, the
+    cylinders' groups first.  Returns (buffer, n_groups, n_cylinder_groups,
+    planes_at, n_planes)."""
+    words = list(bounds["scene"] or (0.0, 0.0, 0.0, 0.0))
+    groups = sorted(bounds["groups"], key=lambda g: g[0] != "cylinders")
+    at = 4 + 8 * len(groups)
+    ints, body = [], []
+    for name, first, count, bound in groups:
+        width = dict(TABLE_COLUMNS)[name] + 4
+        words += list(bound) + [0.0] * 4
+        ints.append((len(words) - 4, (_BOUNDED.index(name), at, count,
+                                      width)))
+        for j in range(first, first + count):
+            body += list(bounds["rows"][name][j]) + list(tables[name][j])
+        at += count * width
+    planes = tables.get("planes", np.zeros((0, 7), np.float32))
+    buf = np.concatenate([np.asarray(words + body, np.float32),
+                          planes.reshape(-1).astype(np.float32)])
+    view = buf.view(np.int32)
+    for w, fields in ints:
+        view[w:w + 4] = fields
+    n_cylinders = sum(g[0] == "cylinders" for g in groups)
+    return buf, len(groups), n_cylinders, at, planes.shape[0]
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_buffer_of(key, n_box_faces):
+    tables = {name: np.frombuffer(data, np.float32).reshape(shape)
+              for name, shape, data in key}
+    return _kernel_tables(tables, _row_bounds(tables, n_box_faces))
+
+
+def _kernel_buffer(tables, n_box_faces: int):
+    """:func:`_kernel_tables` of ``tables`` with their bounds, cached on the
+    tables' exact bytes: a frame of a scene seen before skips the bounds'
+    host work.  The buffer is shared between calls; do not modify it."""
+    key = tuple((name, t.shape, np.ascontiguousarray(t, np.float32).tobytes())
+                for name, t in sorted(tables.items()))
+    return _kernel_buffer_of(key, n_box_faces)
 
 
 def _split_slots(start, sdir, slen):
@@ -302,9 +560,12 @@ def _as_outputs(p, events, count_steps, cfg):
 
 def _march_scene_planes_torch(origin, direction, active, r_s, sc: Scene,
                               cfg: RenderConfig, n_slots: int,
-                              tex: Optional[TextureStack]):
+                              tex: Optional[TextureStack], on_segment=None):
     """The plain scene march as a dict of planes (fdir, fpos, status, nhits,
-    start, sdir, slen, t_end, sstep), slots stacked on a leading K axis."""
+    start, sdir, slen, t_end, sstep), slots stacked on a leading K axis.
+    ``on_segment(live, px, py, pz, sdx, sdy, sdz, seg_len)``, if given, sees
+    every step's segments before their table tests, ``live`` the lanes that
+    run them (for the cull's tests and counts)."""
     dev = origin.device
     r_s = torch.as_tensor(r_s, dtype=torch.float32, device=dev)
     rs2 = r_s * r_s
@@ -335,6 +596,8 @@ def _march_scene_planes_torch(origin, direction, active, r_s, sc: Scene,
         bh_ok, bh_lam = _sphere_entry(px, py, pz, sdx, sdy, sdz, rs2)
         bh = torch.where(bh_ok & (bh_lam >= 0.0) & (bh_lam <= seg_len),
                          bh_lam, inf)
+        if on_segment is not None:
+            on_segment(live, px, py, pz, sdx, sdy, sdz, seg_len)
         best, best_opq = _segment_min_dist(tables, px, py, pz, sdx, sdy, sdz,
                                            seg_len)
         any_hit = live & (torch.minimum(best, bh) < inf)
@@ -408,12 +671,9 @@ def _march_scene_planes(origin, direction, active, r_s, sc: Scene,
         if name in tables and tables[name].shape[1] != width:
             raise ValueError(f"{name} table rows have "
                              f"{tables[name].shape[1]} columns, not {width}")
-    rows = [tables[name].shape[0] if name in tables else 0
-            for name, _ in TABLE_COLUMNS]
-    flat = [tables[name].reshape(-1) for name, _ in TABLE_COLUMNS
-            if name in tables]
-    buf = torch.as_tensor(np.concatenate(flat) if flat
-                          else np.zeros(1, np.float32), device=dev)
+    words, n_groups, n_cylinders, planes_at, n_planes = _kernel_buffer(
+        tables, 6 * sc.boxes.mat_idx.shape[0])
+    buf = torch.as_tensor(words, device=dev)
 
     fdir = torch.empty_like(origin)
     fpos = torch.empty_like(origin)
@@ -429,9 +689,11 @@ def _march_scene_planes(origin, direction, active, r_s, sc: Scene,
     if n:
         max_angle, u_f, far_r2 = march_scalars(cfg)
         lib = _ext.library()
+        width = active.shape[-1] if active.dim() else 1
         rc = lib.march_scene_launch(
             _ext.ptr(origin), _ext.ptr(direction), _ext.ptr(active),
-            _ext.ptr(buf), *rows, _ext.ptr(fdir), _ext.ptr(fpos),
+            _ext.ptr(buf), words.size, int(words.size <= SHARED_TABLE_WORDS),
+            n_groups, n_cylinders, planes_at, n_planes, CULL_HALF, n // width, width, _ext.ptr(fdir), _ext.ptr(fpos),
             _ext.ptr(status), _ext.ptr(nhits), _ext.ptr(start),
             _ext.ptr(sdir), _ext.ptr(slen), _ext.ptr(t_end), _ext.ptr(sstep),
             n_slots, n, float(np.float32(float(r_s))), cfg.max_steps,
@@ -828,8 +1090,9 @@ def march_scene_bwd(origin, direction, r_s, cfg: RenderConfig, cotangents,
     g_r_s scalar).
 
     A CUDA tensor launches ``march_scene_bwd_kernel`` (counted in
-    ``march_scene_bwd.launches``) with a scratch of max_steps x 15 x rays
-    f32 (:func:`bwd_scratch_bytes`); a CPU tensor runs
+    ``march_scene_bwd.launches``) with a checkpoint scratch of
+    ceil(max_steps / BWD_CHECKPOINT_EVERY) x 15 x rays f32
+    (:func:`bwd_scratch_bytes`); a CPU tensor runs
     :func:`march_scene_bwd_torch`."""
     if origin.device.type == "cpu":
         return march_scene_bwd_torch(origin, direction, r_s, cfg, cotangents,
@@ -865,11 +1128,11 @@ def march_scene_bwd(origin, direction, r_s, cfg: RenderConfig, cotangents,
     g_rs = torch.zeros(batch, device=dev)
     n = t_end.numel()
     if n:
-        save = torch.empty(bwd_scratch_bytes(cfg, n) // 4, device=dev)
+        ckpt = torch.empty(bwd_scratch_bytes(cfg, n) // 4, device=dev)
         max_angle, u_f, far_r2 = march_scalars(cfg)
         rc = _ext.library().march_scene_bwd_launch(
             *(_ext.ptr(x) for x in args), n_slots, _ext.ptr(g_origin),
-            _ext.ptr(g_dir), _ext.ptr(g_rs), _ext.ptr(save), n,
+            _ext.ptr(g_dir), _ext.ptr(g_rs), _ext.ptr(ckpt), n,
             float(np.float32(float(r_s))), cfg.max_steps, max_angle, u_f,
             far_r2, _ext.stream_ptr(dev))
         _ext.check(rc, "march_scene_bwd")
@@ -880,10 +1143,16 @@ def march_scene_bwd(origin, direction, r_s, cfg: RenderConfig, cotangents,
 march_scene_bwd.launches = 0
 
 
+# The adjoint kernel saves a ray's core at every BWD_CHECKPOINT_EVERY-th
+# step and recomputes the steps between (the build's BWD_CKPT).
+BWD_CHECKPOINT_EVERY = _ext.DESIGN["BWD_CKPT"]
+
+
 def bwd_scratch_bytes(cfg: RenderConfig, n_rays: int) -> int:
-    """Bytes of the adjoint kernel's save scratch: the 15 core values of
-    every step of every ray, f32."""
-    return cfg.max_steps * len(_CORE) * n_rays * 4
+    """Bytes of the adjoint kernel's checkpoint scratch: the 15 core values
+    f32 at every BWD_CHECKPOINT_EVERY-th step of every ray."""
+    saves = -(-cfg.max_steps // BWD_CHECKPOINT_EVERY)
+    return saves * len(_CORE) * n_rays * 4
 
 
 class _MarchSceneDiff(torch.autograd.Function):

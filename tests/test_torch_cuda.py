@@ -9,6 +9,7 @@ installed; tests/conftest.py imports JAX, so run it there with
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -220,3 +221,102 @@ def test_gradient_frame_launches_adjoint_and_matches_cpu(dev):
     for a, b in zip(gpu, cpu):
         assert bool(torch.isfinite(a).all())
         torch.testing.assert_close(a.cpu(), b, rtol=2e-2, atol=1e-3)
+
+
+def _scene_of(name, dev):
+    if name == "demo":
+        return (configs.demo_scene(device=dev),
+                configs.demo_texture_stack(device=dev))
+    return (configs._orbiting_planets_scene(device=dev),
+            configs.planet_texture_stack(device=dev))
+
+
+def _assert_every_lane_equal(got, ref):
+    for a, b in [(got[0], ref[0]), (got[1], ref[1]), (got[2], ref[2]),
+                 (got[4], ref[4]), (got[5]["t_end"], ref[5]["t_end"])] + [
+            (x, y) for s0, s1 in zip(got[3], ref[3]) for x, y in zip(s0, s1)
+    ] + list(zip(got[5]["ssteps"], ref[5]["ssteps"])):
+        assert torch.equal(a, b)
+    assert (ref[4] >= 1).any()  # rays hit the scene
+
+
+# The culled, tile-mapped kernel computes the unculled plain version's
+# function bit for bit: every plane equal on every lane.  77 x 43 is not a
+# whole number of 4 x 8 warp tiles; "flat" marches the same rays as one row
+# (a 1-D batch: one row per warp).  "device" reads the tables from device
+# memory, the route of a scene too large for a block's shared copy.
+@pytest.mark.parametrize("tables", ["shared", "device"])
+@pytest.mark.parametrize("scene", ["demo", "config3"])
+@pytest.mark.parametrize("size", [(77, 43), (256, 144), "flat"])
+def test_march_scene_kernel_equals_plain_on_every_lane(dev, scene, size,
+                                                       tables, monkeypatch):
+    if tables == "device":
+        monkeypatch.setattr(kernel_scene, "SHARED_TABLE_WORDS", 0)
+    W, H = (77, 43) if size == "flat" else size
+    o, d, active = _rays(dev, W, H, drop=0.1)
+    if size == "flat":
+        o, d, active = o.reshape(-1, 3), d.reshape(-1, 3), active.reshape(-1)
+    cfg = sp.RenderConfig(width=W, height=H, percent_black=-1.0)
+    sc, tex = _scene_of(scene, dev)
+    got = kernel_scene.march_scene(o, d, active, 1.0, sc, cfg, 4, tex,
+                                   events=True)
+    ref = kernel_scene.march_scene_torch(o, d, active, 1.0, sc, cfg, 4, tex,
+                                         events=True)
+    _assert_every_lane_equal(got, ref)
+
+
+# A scene whose tables exceed a block's shared copy: 500 small spheres on a
+# shell about the hole, and a cylinder along the world's y axis.
+def test_march_scene_kernel_tables_past_shared_memory(dev):
+    rng = np.random.default_rng(3)
+    v = rng.normal(size=(500, 3))
+    pos = v / np.linalg.norm(v, axis=1, keepdims=True) * rng.uniform(
+        4, 12, (500, 1))
+    objects = [sp.Sphere(pos=tuple(map(float, p)), radius=0.4) for p in pos]
+    objects.append(sp.LateralCylinder(pos=(3.0, -4.0, 0.0), height=8.0,
+                                      radius=0.5))
+    sc = sp.build_scene(objects, device=dev)
+    words = kernel_scene._kernel_buffer(kernel_scene._pack_scene_smem(sc),
+                                        0)[0].size
+    assert words > kernel_scene.SHARED_TABLE_WORDS
+    W, H = 24, 16
+    o, d, active = _rays(dev, W, H)
+    cfg = sp.RenderConfig(width=W, height=H, percent_black=-1.0,
+                          max_steps=30)
+    got = kernel_scene.march_scene(o, d, active, 1.0, sc, cfg, 4,
+                                   events=True)
+    ref = kernel_scene.march_scene_torch(o, d, active, 1.0, sc, cfg, 4,
+                                         events=True)
+    _assert_every_lane_equal(got, ref)
+
+
+# The checkpointed adjoint: 37 steps is not a whole number of checkpoint
+# intervals; u_f = 0.1 puts the far-field sphere at r = 10, inside the
+# camera's r = 15.1, so rays re-enter it at their first step; a fifth of
+# the lanes never march.
+@pytest.mark.parametrize("n_slots", [4, 0])
+def test_march_scene_bwd_checkpoints_match_plain(dev, n_slots):
+    W, H = 96, 64
+    o, d, active = _rays(dev, W, H, drop=0.2)
+    cfg = sp.RenderConfig(width=W, height=H, percent_black=-1.0,
+                          max_steps=37, u_f=0.1)
+    assert cfg.max_steps % kernel_scene.BWD_CHECKPOINT_EVERY
+    sc, tex = _scene_of("demo", dev)
+    out = kernel_scene.march_scene(o, d, active, 1.0, sc, cfg, n_slots, tex,
+                                   events=True)
+    t_end = out[5]["t_end"]
+    assert ((t_end >= 1) & (out[2] != kernel_scene.STATUS_FLAT_FINISH)
+            ).any()  # re-entered at step 0, then marched on
+    assert (t_end == -1).any() and (t_end >= 8).any()
+    g = torch.Generator(device="cpu").manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    cts = (rnd(H, W, 3), rnd(H, W, 3),
+           [(rnd(H, W, 3), rnd(H, W, 3), rnd(H, W)) for _ in range(n_slots)])
+    args = (o, d, 1.0, cfg, cts, out[2], out[5], n_slots)
+    got = kernel_scene.march_scene_bwd(*args)
+    ref = kernel_scene.march_scene_bwd_torch(*args)
+    _assert_adjoint_close(got, ref)
+    assert torch.equal(got[0][~active], ref[0][~active])

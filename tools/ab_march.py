@@ -1,23 +1,39 @@
-"""Time the forward march kernels of two checkouts of this repository in
-turns on one CUDA card: pairs of runs, A then B, then B then A, and so on.
+"""Time the march kernels of two or more checkouts of this repository in
+turns on one CUDA card.
 
-    python3 tools/ab_march.py PATH_A PATH_B [PAIRS]   # PAIRS defaults to 5
+    python3 tools/ab_march.py PATH_A PATH_B [PATH_C ...] [--pairs N]
 
+N rounds (default 5); each round runs every checkout once, in the given
+order in even rounds and in reverse in odd ones (A, B, then B, A for two).
 Each run imports one checkout's schwarzschild_tpu_torch in a subprocess of
-its own (both packages have the same name), builds its kernels from its own
-csrc/, and times march_scene on the demo scene at 1280x720 (4 slots,
-opaque stop on) and march_bh on config-2 rays at 512x512: CUDA-event
-medians of 20 launches after 3 warm-up launches.  The rays, the timing and
-the card line are this repository's chip_smoke.py's, whichever checkout is
-timed.  It prints one JSON line per run, then the card's name and power
-limit.  Two versions compare only inside one such call: cards and hosts
-differ from call to call.
+its own (the packages share a name), builds its kernels from its own
+csrc/, and times each kernel's device time (``*_device_ms``: torch.profiler,
+the median of 20 launches after 3 warm-up calls; null where the
+profiler lost the launches) and its wrapper's whole
+call (``*_ms``, host work included: CUDA-event medians of 20 calls):
+  * march_scene on the demo scene at 1280x720 (4 slots, opaque stop on),
+    and where a checkout has the choice (SHARED_TABLE_WORDS), the same with
+    the tables read from device memory, the route of a large scene;
+  * march_scene_bwd at 1280x720 on the events of the plain forward march
+    (the same in every checkout) and cotangents from a seeded CPU
+    generator, so every checkout gets the same inputs;
+  * march_bh on config-2 rays at 512x512;
+  * the host work of packing the demo scene's tables, which each
+    march_scene call does before its launch (``pack_scene_tables_host_ms``,
+    host clock, the median of 20 after 3).
+The rays, the timing and the card line are this repository's
+chip_smoke.py's, whichever checkout is timed.  It prints one JSON line per
+run, one per checkout with each time's median and quartile spread over the
+rounds, then the card's name and power limit.  Versions compare only
+inside one such call: cards and hosts differ from call to call.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -28,7 +44,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 RUN = r"""
-import importlib.util, json, os, torch
+import importlib.util, json, os, statistics, time, torch
 spec = importlib.util.spec_from_file_location("chip_smoke",
                                               os.environ["AB_CHIP_SMOKE"])
 smoke = importlib.util.module_from_spec(spec)
@@ -42,14 +58,45 @@ sc = configs.demo_scene(device=dev)
 tex = configs.demo_texture_stack(device=dev)
 cfg = sp.RenderConfig(width=1280, height=720, percent_black=-1.0)
 o, d, act = smoke.rays(cam, 1280, 720, dev)
-scene_ms = smoke.cuda_ms(lambda: kernel_scene.march_scene(
-    o, d, act, 1.0, sc, cfg, 4, tex), warmup=3, reps=20)
+scene = lambda: kernel_scene.march_scene(o, d, act, 1.0, sc, cfg, 4, tex)
+scene_ms = smoke.cuda_ms(scene, warmup=3, reps=20)
+scene_dev = smoke.device_ms(scene, "march_scene_kernel")
+tables_dev = None  # the tables from device memory, where a checkout can
+if hasattr(kernel_scene, "SHARED_TABLE_WORDS"):
+    shared = kernel_scene.SHARED_TABLE_WORDS
+    kernel_scene.SHARED_TABLE_WORDS = 0
+    tables_dev = smoke.device_ms(scene, "march_scene_kernel")
+    kernel_scene.SHARED_TABLE_WORDS = shared
+fwd = kernel_scene.march_scene_torch(o, d, act, 1.0, sc, cfg, 4, tex,
+                                     events=True)
+gen = torch.Generator(device="cpu").manual_seed(0)
+rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+cts = (rnd(720, 1280, 3), rnd(720, 1280, 3),
+       [(rnd(720, 1280, 3), rnd(720, 1280, 3), rnd(720, 1280))
+        for _ in range(4)])
+bwd = lambda: kernel_scene.march_scene_bwd(o, d, 1.0, cfg, cts, fwd[2],
+                                           fwd[5], 4)
+bwd_ms = smoke.cuda_ms(bwd, warmup=3, reps=20)
+bwd_dev = smoke.device_ms(bwd, "march_scene_bwd_kernel")
 c2 = configs.config2_curved(device=dev)
 o2, d2, act2 = smoke.rays(c2["camera"], 512, 512, dev)
-bh_ms = smoke.cuda_ms(lambda: kernel.march_bh(o2, d2, act2, 1.0, c2["cfg"]),
-                      warmup=3, reps=20)
-print(json.dumps(dict(march_scene_1280x720_ms=scene_ms,
-                      march_bh_512_ms=bh_ms)))
+pack = []
+for _ in range(23):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kernel_scene._pack_scene_smem(sc, tex)
+    pack.append((time.perf_counter() - t0) * 1e3)
+bh = lambda: kernel.march_bh(o2, d2, act2, 1.0, c2["cfg"])
+bh_ms = smoke.cuda_ms(bh, warmup=3, reps=20)
+bh_dev = smoke.device_ms(bh, "march_bh_kernel")
+print(json.dumps(dict(
+    march_scene_1280x720_device_ms=scene_dev,
+    march_scene_tables_in_device_memory_1280x720_device_ms=tables_dev,
+    march_scene_bwd_1280x720_device_ms=bwd_dev,
+    march_bh_512_device_ms=bh_dev,
+    pack_scene_tables_host_ms=statistics.median(pack[3:]),
+    march_scene_1280x720_ms=scene_ms,
+    march_scene_bwd_1280x720_ms=bwd_ms, march_bh_512_ms=bh_ms)))
 """
 
 
@@ -63,17 +110,36 @@ def run(path):
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+def summary(times):
+    """Median and quartile spread (Q3 - Q1) of a list of times; a run whose
+    device time the profiler lost (None) is left out and counted."""
+    got = [t for t in times if t is not None]
+    if not got:
+        return dict(median=None, quartile_spread=None, runs=times)
+    q1, _, q3 = (statistics.quantiles(got, n=4, method="inclusive")
+                 if len(got) > 1 else got * 3)
+    return dict(median=statistics.median(got), quartile_spread=q3 - q1,
+                runs=times, lost=len(times) - len(got))
+
+
 def main() -> int:
-    if len(sys.argv) not in (3, 4):
-        print(__doc__, file=sys.stderr)
-        return 2
-    a, b = sys.argv[1:3]
-    pairs = int(sys.argv[3]) if len(sys.argv) == 4 else 5
-    for k in range(pairs):
-        order = (("A", a), ("B", b)) if k % 2 == 0 else (("B", b), ("A", a))
-        for label, path in order:
-            print(json.dumps({"pair": k, "run": label, "path": path,
-                              **run(path)}), flush=True)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("paths", nargs="+")
+    ap.add_argument("--pairs", type=int, default=5)
+    args = ap.parse_args()
+    if len(args.paths) < 2:
+        ap.error("give at least two checkouts")
+    times = {p: {} for p in args.paths}
+    for k in range(args.pairs):
+        order = args.paths if k % 2 == 0 else args.paths[::-1]
+        for path in order:
+            res = run(path)
+            print(json.dumps({"pair": k, "path": path, **res}), flush=True)
+            for key, ms in res.items():
+                times[path].setdefault(key, []).append(ms)
+    for path, by_key in times.items():
+        print(json.dumps({"path": path, **{
+            key: summary(ms) for key, ms in by_key.items()}}), flush=True)
     print(chip_smoke.card_line(), flush=True)
     return 0
 
