@@ -32,7 +32,22 @@ Phases, one printed line each (any failure raises, so the exit code is not
      card's gradients against the CPU's at a small size;
   7. inverse: config 5 at 128x128, inverse.fit(renderer="fast",
      disk_slot=5) for 5 steps from r_s 0.7 against a target rendered at
-     r_s 1, with the counters reset around it: losses, ms per step.
+     r_s 1, with the counters reset around it: losses, ms per step;
+  8. flyby: first march_scene against its plain version at the flyby's
+     own inputs (the 1920x1080 split-screen rays and mask of the
+     trajectory cameras at t = 0 and 0.5); then config 4 (8 frames of the
+     hyperbolic flyby, 1920x1080, split screen) through
+     animation.render_trajectory(renderer="fast", prefetch=2,
+     encode_workers=2) into a temporary directory, with the counters reset
+     around it: one march_scene launch a frame; every PNG, decoded here,
+     equals to_uint8 of a direct render_fast of its camera; a second call
+     into the same directory renders nothing (8 frame_skipped events, no
+     launch); a run that keeps the frames in memory, with
+     measure_device_ms: every frame finite and equal to the direct
+     render; the timings (per-frame seconds, wall time per frame,
+     host_fetch_ms, png_ms of the PNG run, device_ms_est), the 1080p frame
+     alone (CUDA events) with one profiled frame's device time and idle
+     share, and a 192x108 flyby frame on the card against the CPU's.
 Then one JSON line of per-kernel results, the card line again, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -45,6 +60,10 @@ within 2e-3 of the plain version's largest |value| per output and its r_s
 gradient within 2e-3 relative (tests/test_adjoint.py's rule).  A frame on
 the card must match the CPU frame within 2e-3 on at least 99.5% of pixels;
 gradients within rtol 2e-2, atol 1e-3 (tests/test_kernel_scene.py's rule).
+At the flyby's rays the scene kernel must equal its plain version on every
+lane: every plane of both instantiations and every event.
+A flyby frame on the card must match the CPU's within 1 uint8 level on at
+least 99.5% of pixels (tests/test_aux.py's rule for the JAX animation module).
 A kernel's time (``ms``) is its wrapper's whole call, host work included,
 and the other times are CUDA-event medians of 10 runs after 2 warm-up
 runs (plain versions: 3 after 1); ``device_ms`` is the kernel alone, its
@@ -68,9 +87,13 @@ from __future__ import annotations
 import json
 import re
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -204,6 +227,17 @@ def agreement(kernel_out, plain_out):
     return share, max_err, within, same
 
 
+def scene_planes(out):
+    """{name: plane} of a march_scene result: fdir, fpos, status, nhits and
+    each slot's start, dir and len."""
+    fdir, fpos, status, slots, nhits = out[:5]
+    res = dict(fdir=fdir, fpos=fpos, status=status, nhits=nhits)
+    for i, (s0, d0, l0) in enumerate(slots):
+        res.update({f"slot{i}.start": s0, f"slot{i}.dir": d0,
+                    f"slot{i}.len": l0})
+    return res
+
+
 class CullCount:
     """An on_segment hook for the plain scene march that counts the table
     work of the culled kernel: f32 operations summed over the lane-steps
@@ -247,6 +281,32 @@ class CullCount:
         self.steps += int(live.sum())
         self.exact += sum(int(m.sum()) for m, _ in exact)
         self.lane_ops += sum(int(m.sum()) * ops for m, ops in tests + exact)
+
+
+def read_png(path):
+    """(H, W, 3) uint8 rows of an 8-bit RGB PNG whose rows use filter 0,
+    as animation's encoder writes them; raises on anything else."""
+    import numpy as np
+
+    data = Path(path).read_bytes()
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    at, idat, header = 8, b"", None
+    while at < len(data):
+        (length,), kind = struct.unpack(">I", data[at:at + 4]), data[at + 4:
+                                                                     at + 8]
+        chunk = data[at + 8:at + 8 + length]
+        require(struct.unpack(">I", data[at + 8 + length:at + 12 + length])[0]
+                == zlib.crc32(kind + chunk), f"{path}: bad CRC")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", chunk)
+        elif kind == b"IDAT":
+            idat += chunk
+        at += 12 + length
+    w, h, depth, color = header[:4]
+    require((depth, color) == (8, 2), f"{path}: not 8-bit RGB")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    require(bool((rows[:, 0] == 0).all()), f"{path}: a row filter is not 0")
+    return rows[:, 1:].reshape(h, w, 3)
 
 
 def require(cond, what):
@@ -310,6 +370,137 @@ def ptxas_report(log_text):
     return out
 
 
+def flyby_phase(dev, cpu, reset_launches, read_launches, n_frames=8,
+                small=(192, 108)):
+    """Phase 8 (see the module's docstring): config 4's flyby of n_frames
+    frames through animation.render_trajectory on dev, checked and timed,
+    the scene kernel against its plain version at the flyby's rays, and a
+    small flyby frame on dev against the same frame on cpu."""
+    import dataclasses
+
+    import torch
+
+    import schwarzschild_tpu_torch as sp
+    from schwarzschild_tpu_torch import animation, configs, kernel
+    from schwarzschild_tpu_torch import kernel_scene, metrics
+    from schwarzschild_tpu_torch import camera as cam_mod
+
+    c4 = configs.config4_animation(n_frames=n_frames, device=dev)
+    cfg4 = c4["cfg"]
+
+    def flyby(out_dir, **kw):
+        logger = metrics.MetricsLogger()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = animation.render_trajectory(
+            c4["scene"], cfg4, c4["background"], c4["tex"], times=c4["times"],
+            out_dir=out_dir, logger=logger, all_frames_local=True,
+            renderer="fast", prefetch=2, encode_workers=2,
+            **c4["trajectory"], **kw)
+        torch.cuda.synchronize()
+        return out, logger.records, time.perf_counter() - t0
+
+    def flyby_cam(t, device):
+        return cam_mod.hyperbolic_trajectory(
+            cam_mod.make_camera((0.0, 2.0, 15.0), device=device),
+            time=t, **c4["trajectory"])
+
+    def kernel_vs_plain(t):
+        """march_scene against march_scene_torch, both on dev, at the rays
+        and mask that render_fast gives the kernel for the trajectory
+        camera at time t: every plane of both instantiations and every
+        event must be equal."""
+        px = kernel.pixel_setup(flyby_cam(t, dev), cfg4, dev)
+        args = (px["origin"], px["direction"], px["march_px"], 1.0,
+                c4["scene"], cfg4, 4, c4["tex"])
+        ref = kernel_scene.march_scene_torch(*args, events=True)
+        got = kernel_scene.march_scene(*args, events=True)
+        pairs = [(a, b) for out in (kernel_scene.march_scene(*args), got)
+                 for a, b in zip(scene_planes(out).values(),
+                                 scene_planes(ref).values())]
+        pairs += [(got[5]["t_end"], ref[5]["t_end"])] + list(
+            zip(got[5]["ssteps"], ref[5]["ssteps"]))
+        return dict(time=t, marched_lanes=int(px["march_px"].sum()),
+                    every_lane_equal=all(torch.equal(a, b) for a, b in pairs),
+                    max_abs_err=max((a.float() - b.float()).abs().max().item()
+                                    for a, b in pairs))
+
+    # At the start and at the closest approach (10 from the hole).
+    at_flyby_rays = [kernel_vs_plain(t) for t in (0.0, 0.5)]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        paths, records, wall = flyby(Path(tmp) / "a")
+        fly_launches = read_launches()
+        reset_launches()
+        _, again, _ = flyby(Path(tmp) / "a")
+        resume_launches = read_launches()
+        pngs = [read_png(path) for _, path in paths]
+    in_memory, timed, _ = flyby(None, measure_device_ms=True)
+    direct = [sp.render_fast(c4["scene"], flyby_cam(t, dev), cfg4,
+                             c4["background"], c4["tex"], 1.0,
+                             overflow="ignore") for t in c4["times"]]
+    pngs_equal = [bool((png == sp.to_uint8(d).cpu().numpy()).all())
+                  for png, d in zip(pngs, direct)]
+    driver_frames_equal = [torch.equal(f, d.cpu())
+                           for (_, f), d in zip(in_memory, direct)]
+    finite = all(bool(torch.isfinite(f).all()) for _, f in in_memory)
+
+    def one_frame():
+        return sp.render_fast(c4["scene"], flyby_cam(0.0, dev), cfg4,
+                              c4["background"], c4["tex"], 1.0,
+                              overflow="ignore")
+
+    frame_1080_ms = cuda_ms(one_frame)
+    profiled_frame = profile_device(one_frame)
+    if isinstance(profiled_frame.get("device_ms"), float):
+        profiled_frame["idle_share"] = (1.0 - profiled_frame["device_ms"]
+                                        / frame_1080_ms)
+
+    small4 = dataclasses.replace(cfg4, width=small[0], height=small[1])
+    small_frames = []
+    for device in (dev, cpu):
+        c = configs.config4_animation(n_frames=1, device=device)
+        small_frames.append(animation.render_trajectory(
+            c["scene"], small4, c["background"], c["tex"], times=[0.5],
+            all_frames_local=True, **c["trajectory"])[0][1])
+    small_diff = (sp.to_uint8(small_frames[0]).short()
+                  - sp.to_uint8(small_frames[1]).short()).abs().amax(-1)
+    share_small = (small_diff <= 1).float().mean().item()
+
+    def fields(recs, event, key):
+        return [r[key] for r in recs if r["event"] == event]
+
+    log("flyby", shape=[cfg4.height, cfg4.width], frames=len(paths),
+        raytrace_type="HALF_WIDTH", march_scene_vs_plain=at_flyby_rays,
+        launches=fly_launches, resume_launches=resume_launches,
+        resume_skipped=len(fields(again, "frame_skipped", "frame")),
+        pngs_equal_direct_render=pngs_equal,
+        driver_frames_equal_direct_render=driver_frames_equal,
+        finite=finite, wall_s=wall, wall_ms_per_frame=wall / len(paths) * 1e3,
+        frame_seconds=fields(records, "frame", "seconds"),
+        host_fetch_ms=fields(records, "frame", "host_fetch_ms"),
+        png_ms=fields(records, "png", "png_ms"),
+        device_ms_est=fields(timed, "device_ms_estimate", "device_ms"),
+        frame_1920x1080_cuda_ms=frame_1080_ms,
+        profiled_frame=profiled_frame,
+        card_vs_cpu_192x108_within_1_level=share_small)
+    require(all(r["every_lane_equal"] for r in at_flyby_rays),
+            f"march_scene differs from plain at the flyby's rays: "
+            f"{at_flyby_rays}")
+    require(fly_launches["march_scene"] == len(c4["times"]) == len(paths),
+            f"flyby launches {fly_launches} for {len(paths)} frames")
+    require(finite, "a flyby frame is not finite")
+    require(all(pngs_equal),
+            f"flyby PNGs equal to_uint8(render_fast): {pngs_equal}")
+    require(len(in_memory) == len(direct) and all(driver_frames_equal),
+            f"driver frames equal render_fast: {driver_frames_equal}")
+    require(resume_launches["march_scene"] == 0
+            and len(fields(again, "frame_skipped", "frame")) == len(paths),
+            f"the resumed flyby rendered: {resume_launches}")
+    require(share_small >= 0.995, f"flyby frame vs CPU {share_small}")
+
+
 def main() -> int:
     import torch
 
@@ -366,6 +557,9 @@ def main() -> int:
     events_equal = bool(
         torch.equal(k[2]["t_end"][same], p[2]["t_end"][same])
         and torch.equal(k[2]["died_moving"][same], p[2]["died_moving"][same]))
+    every_lane_equal = all(torch.equal(a, b) for a, b in [
+        (k[1], p[1]), (k[0], p[0]), (k[2]["t_end"], p[2]["t_end"]),
+        (k[2]["died_moving"], p[2]["died_moving"])])
     steps = int(k[3])
     ms = cuda_ms(lambda: kernel.march_bh(o, d, act, 1.0, cfg2))
     dev_ms = device_ms(lambda: kernel.march_bh(o, d, act, 1.0, cfg2),
@@ -377,8 +571,16 @@ def main() -> int:
     results["march_bh"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
                                plain_ms=plain_ms, bound_ms=b_ms,
                                bound_by=b_by)
+    design = _ext.DESIGN
     log("march_bh", shape=[cfg2.height, cfg2.width], status_agree=share,
         fdir_max_abs_err=err, within_tol=within, events_equal=events_equal,
+        every_lane_equal=every_lane_equal,
+        launch=dict(threads=design["BH_THREADS"],
+                    warp_tile=[design["BH_TILE_ROWS"],
+                               32 // design["BH_TILE_ROWS"]],
+                    blocks_per_sm=_ext.library().march_bh_blocks_per_sm(0),
+                    ptxas={key: val for key, val in ptxas.items()
+                           if key.startswith("march_bh")} or "not rebuilt"),
         ms=ms, device_ms=dev_ms, plain_ms=plain_ms, executed_steps=steps,
         bound_ms=b_ms, bound_by=b_by, captured=int((k[1] == 1.0).sum()))
     require(share >= 0.999, f"march_bh status agreement {share}")
@@ -393,14 +595,6 @@ def main() -> int:
     cfg = sp.RenderConfig(width=1280, height=720, percent_black=-1.0)
     o, d, act = rays(cam, cfg.width, cfg.height, dev)
 
-    def flat(out):
-        fdir, fpos, status, slots, nhits = out[:5]
-        res = dict(fdir=fdir, fpos=fpos, status=status, nhits=nhits)
-        for i, (s0, d0, l0) in enumerate(slots):
-            res.update({f"slot{i}.start": s0, f"slot{i}.dir": d0,
-                        f"slot{i}.len": l0})
-        return res
-
     kout = kernel_scene.march_scene(o, d, act, 1.0, sc, cfg, 4, tex,
                                     events=True, count_steps=True)
     tables = kernel_scene._pack_scene_smem(sc, tex)
@@ -410,7 +604,8 @@ def main() -> int:
         o, d, act, 1.0, sc, cfg, 4, tex, on_segment=counted), True, False,
         cfg)
     torch.cuda.synchronize()
-    share, err, within, same = agreement(flat(kout), flat(pout))
+    share, err, within, same = agreement(scene_planes(kout),
+                                         scene_planes(pout))
     events_equal = torch.equal(kout[5]["t_end"][same],
                                pout[5]["t_end"][same]) and all(
         torch.equal(a[same], b[same])
@@ -438,7 +633,6 @@ def main() -> int:
                                   plain_ms=plain_ms, bound_ms=b_ms,
                                   bound_by=b_by)
     counts = {str(c): int((kout[2] == c).sum()) for c in range(5)}
-    design = _ext.DESIGN
     words = kernel_scene._kernel_buffer(
         tables, 6 * sc.boxes.mat_idx.shape[0])[0].size
     log("march_scene", shape=[cfg.height, cfg.width], n_slots=4,
@@ -685,6 +879,9 @@ def main() -> int:
     require(not warnings, f"non-finite gradient entries: {warnings}")
     require(inverse_launches["march_scene_bwd"] >= 5,
             f"config-5 steps launched {inverse_launches}")
+
+    # 8. flyby: config 4 through animation.render_trajectory, counters reset
+    flyby_phase(dev, cpu, reset_launches, read_launches)
 
     src = "schwarzschild_tpu_torch/csrc/march.cu"
     kernels = [

@@ -9,7 +9,7 @@ kernels, which are built with nvcc at first use.
 """
 
 from .config import CURVED, FLAT, HALF_HEIGHT, HALF_WIDTH, RenderConfig
-from .camera import Camera, look_at, make_camera
+from .camera import Camera, hyperbolic_trajectory, look_at, make_camera
 from .scene import (
     Box,
     Disk,
@@ -26,10 +26,11 @@ from .scene import (
     to_device,
 )
 from .intersect import Hit, intersect_scene
-from .render import save_png, to_uint8
+from .render import encode_png, save_png, to_uint8
 from .shading import get_background, shade
 from .textures import Texture, TextureStack, from_array, load_texture, stack_textures
 from .kernel import render_horizon_sky
 from .kernel_scene import render_fast, render_fast_auto
+from .animation import render_trajectory, write_video
 
 __version__ = "0.1.0"

@@ -28,8 +28,10 @@ BUILD_DIR = Path(__file__).parent / "_build"
 # reads them from there, the wrappers and reports from here.  The scene
 # kernel's threads a block and its warp tile's rows (a warp marches
 # TILE_ROWS x 32 / TILE_ROWS pixels); the adjoint's threads a block and its
-# checkpoint interval (it saves a ray's core at every BWD_CKPT-th step).
-DESIGN = dict(SCENE_THREADS=128, TILE_ROWS=4, BWD_THREADS=64, BWD_CKPT=8)
+# checkpoint interval (it saves a ray's core at every BWD_CKPT-th step);
+# the horizon kernel's threads a block and its warp tile's rows.
+DESIGN = dict(SCENE_THREADS=128, TILE_ROWS=4, BWD_THREADS=64, BWD_CKPT=8,
+              BH_THREADS=256, BH_TILE_ROWS=4)
 
 # -fmad=false: no a*b+c contraction, so the kernels round like the plain
 # versions and the JAX reference (see csrc/march_common.cuh).
@@ -44,7 +46,8 @@ _F = ctypes.c_float
 # stream).
 _MARCH = [_I, _F, _I, _F, _F, _F, _P]
 _SIGNATURES = {
-    "march_bh_launch": [_P] * 7 + _MARCH,
+    "march_bh_launch": [_P] * 3 + [_I] * 2 + [_P] * 4 + _MARCH,
+    "march_bh_blocks_per_sm": [_I],
     "march_scene_launch": ([_P] * 4 + [_I] * 6 + [_F] + [_I] * 2
                            + [_P] * 9 + [_I] + _MARCH),
     "march_scene_bwd_launch": [_P] * 10 + [_I] + [_P] * 4 + _MARCH,

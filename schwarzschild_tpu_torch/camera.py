@@ -1,4 +1,5 @@
-"""Pinhole camera (counterpart of ``schwarzschild_tpu.camera``).
+"""Pinhole camera and the hyperbolic flyby (counterpart of
+``schwarzschild_tpu.camera``).
 
 A :class:`Camera` is a NamedTuple of tensors (pos (3,), axes (3, 3) with
 columns (right, up, forward), fov in degrees).  Rays come back in the JAX
@@ -17,6 +18,10 @@ from .config import CURVED, FLAT, HALF_HEIGHT, HALF_WIDTH  # noqa: F401
 from .config import resolve_device
 
 DEFAULT_FOV = 90.0  # degrees, camera.h:7
+HYPERBOLIC_TRAJECTORY_DURATION = 5.0  # seconds, camera.h:10
+# In-plane basis of the flyby conic (camera.h:11-12).
+HYPERBOLIC_BASE_X = (0.0, 0.0, -1.0)
+HYPERBOLIC_BASE_Y = (math.cos(math.pi / 10.0), math.sin(math.pi / 10.0), 0.0)
 
 
 class Camera(NamedTuple):
@@ -64,6 +69,30 @@ def look_at(cam: Camera, point=(0.0, 0.0, 0.0)) -> Camera:
     r = geo.normalize(geo.cross(f, world_up))
     u = geo.normalize(geo.cross(r, f))
     return cam._replace(axes=torch.stack([r, u, f], dim=-1))
+
+
+def hyperbolic_trajectory(cam: Camera, initial_distance, closest_distance,
+                          time) -> Camera:
+    """Conic-section flyby pose at normalized ``time`` in [0, 1]
+    (camera.cpp:20-33), facing the origin.  f32 on the camera's device and
+    differentiable in every argument."""
+    dev = cam.pos.device
+    initial_distance = _f32(initial_distance, dev)
+    closest_distance = _f32(closest_distance, dev)
+    time = _f32(time, dev)
+
+    closest_sq = closest_distance**2
+    a = -closest_sq / (-initial_distance + 2.0 * closest_distance)
+    c = closest_distance + a
+    b = torch.sqrt(closest_sq + 2.0 * a * closest_distance)
+
+    eased = geo.true_div(1.0 - torch.cos(time * math.pi), 2.0)
+    x = -initial_distance + 2.0 * eased * initial_distance
+    y = c - a * torch.sqrt(1.0 + (x / b) ** 2)
+
+    pos = (x * _f32(HYPERBOLIC_BASE_X, dev)
+           + y * _f32(HYPERBOLIC_BASE_Y, dev))
+    return look_at(cam._replace(pos=pos))
 
 
 def pixel_grid(width: int, height: int, device=None):

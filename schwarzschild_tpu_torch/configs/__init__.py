@@ -131,6 +131,15 @@ def demo_scene(device=None):
     return build_scene(objects, [Light(intensity=8.0)], device=device)
 
 
+def config1_flat(device=None):
+    """Flat-space 256x256: BH sphere + equirect sky, single frame."""
+    cfg = RenderConfig(width=256, height=256, raytrace_type=cam_mod.FLAT,
+                       percent_black=-1.0)
+    sc = build_scene([], [Light(intensity=8.0)], device=device)
+    return dict(scene=sc, camera=demo_camera(device), cfg=cfg,
+                background=background_texture(device=device), tex=None)
+
+
 def config2_curved(device=None):
     """Curved 512x512 RK4 march: horizon + sky, fixed camera."""
     cfg = RenderConfig(width=512, height=512, percent_black=-1.0)
@@ -162,6 +171,21 @@ def config3_full_scene(device=None):
                 camera=demo_camera(device), cfg=cfg,
                 background=background_texture(device=device),
                 tex=planet_texture_stack(device))
+
+
+def config4_animation(n_frames=16, device=None):
+    """Animated hyperbolic trajectory, 1920x1080, split-screen flat/curved:
+    ``times`` are the frames' normalized trajectory times and
+    ``trajectory`` the conic's distances (animation.render_trajectory's
+    arguments)."""
+    cfg = RenderConfig(width=1920, height=1080,
+                       raytrace_type=cam_mod.HALF_WIDTH,
+                       curved_percentage=0.5, percent_black=-1.0)
+    times = np.linspace(0.0, 1.0, n_frames)
+    return dict(scene=demo_scene(device), cfg=cfg,
+                background=background_texture(device=device),
+                tex=demo_texture_stack(device), times=times,
+                trajectory=dict(initial_distance=30.0, closest_distance=10.0))
 
 
 def config5_inverse(device=None):

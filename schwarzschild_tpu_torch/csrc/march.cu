@@ -61,8 +61,14 @@
 //   their VJPs from there.  One more forward replay a step buys a kCkpt
 //   times smaller scratch and its traffic.
 //
-// The horizon march's launch uses 128 threads a block over the flattened
-// rays with the tail masked, so an image of any size needs no padding copy.
+// * The horizon march has no tables: its work is the step's arithmetic,
+//   which the contract fixes, and the lanes a warp idles while its longest
+//   ray marches.  Its warps take 4 x 8 tiles too (BH_TILE_ROWS), so that
+//   neighbouring rays, of similar lengths, share a warp; a 1-D batch of
+//   rays keeps 32 consecutive rays a warp.
+//
+// Every kernel masks the image's ragged edge itself, so an image of any
+// size needs no padding copy.
 #include <cuda_runtime.h>
 
 #include "march_common.cuh"
@@ -70,7 +76,7 @@
 // The launch shapes and the checkpoint interval come from the build
 // (_ext.DESIGN, passed as -D macros), so Python and CUDA share one value.
 #if !defined(SCENE_THREADS) || !defined(TILE_ROWS) || !defined(BWD_THREADS) || \
-    !defined(BWD_CKPT)
+    !defined(BWD_CKPT) || !defined(BH_THREADS) || !defined(BH_TILE_ROWS)
 #error "build through schwarzschild_tpu_torch/_ext.py: it defines the design"
 #endif
 
@@ -79,8 +85,6 @@ namespace {
 using march::Geodesic;
 using march::Params;
 using march::Step;
-
-constexpr int kThreads = 128;
 
 // ---------------------------------------------------------------------------
 // Table buffer (kernel_scene._kernel_tables builds it; 32-bit words,
@@ -310,17 +314,30 @@ __device__ __forceinline__ void segment_min_dist(const float* tab,
   }
 }
 
-// The ray a thread of the scene kernel marches.  Each warp takes a tile of
-// kTileRows x (32 / kTileRows) pixels of the H x W image
-// (rays are row-major, W the last axis), the block's warps side by side
-// along a row, so the lanes of a warp march neighbouring rays: similar
-// lengths and the same cull decisions.  An image of fewer rows than a tile
-// takes one row per warp.  Returns -1 past the image's edge.
-__device__ __forceinline__ int tile_ray(int H, int W) {
-  const int rows = H >= kTileRows ? kTileRows : 1;
+// Warp tiles.  A warp marches a tile of `rows` x (32 / rows) pixels of the
+// H x W image (rays are row-major, W the last axis), a block's warps side
+// by side along a row, so the lanes of a warp march neighbouring rays:
+// similar lengths and, in the scene kernel, the same cull decisions.  An
+// image of fewer rows than a tile (max_rows) takes one row per warp.
+__host__ __device__ __forceinline__ int tile_rows(int H, int max_rows) {
+  return H >= max_rows ? max_rows : 1;
+}
+
+// The blocks of kThreads threads that cover the image.
+template <int kThreads>
+long long tile_blocks(int H, int W, int max_rows) {
+  const int rows = tile_rows(H, max_rows);
+  const int span = (kThreads / 32) * (32 / rows);  // columns of a block
+  return (long long)((W + span - 1) / span) * ((H + rows - 1) / rows);
+}
+
+// The ray this thread marches, or -1 past the image's edge.
+template <int kThreads>
+__device__ __forceinline__ int tile_ray(int H, int W, int max_rows) {
+  const int rows = tile_rows(H, max_rows);
   const int cols = 32 / rows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int span = (kSceneThreads / 32) * cols;  // columns of a block
+  const int span = (kThreads / 32) * cols;  // columns of a block
   const int bx = (W + span - 1) / span;
   const int block = blockIdx.x;
   const int x = (block % bx) * span + warp * cols + lane % cols;
@@ -328,17 +345,28 @@ __device__ __forceinline__ int tile_ray(int H, int W) {
   return (x < W && y < H) ? y * W + x : -1;
 }
 
-// kEvents: also write t_end and died_moving (as march_scene_kernel).
+// The horizon march's launch design (_ext.DESIGN): threads a block and the
+// warp tile's rows (1: 32 pixels of one row).  Measured on an H100 at
+// 512x512 (tools/ab_march.py, kernel device time): 4 x 8 tiles 6% faster
+// than rows; 256-thread blocks 1% faster than 128 and 3% faster than 64;
+// launch bounds that hold ptxas to 40 or 32 registers (12 or 16 blocks an
+// SM) spilled and ran 2-8% slower; a persistent grid of resident blocks
+// taking tiles from an atomic counter ran 11-17% slower.
+constexpr int kBhThreads = BH_THREADS;
+constexpr int kBhTileRows = BH_TILE_ROWS;
+
+// The rays are an H x W image (a 1-D batch: H = 1).  kEvents: also write
+// t_end and died_moving (as march_scene_kernel).
 template <bool kEvents>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBhThreads)
     march_bh_kernel(const float* __restrict__ origin,
                     const float* __restrict__ direction,
-                    const unsigned char* __restrict__ active,
+                    const unsigned char* __restrict__ active, int H, int W,
                     float* __restrict__ fdir, float* __restrict__ status,
                     float* __restrict__ t_end,
                     unsigned char* __restrict__ died_moving, Params p) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= p.n) return;
+  const int idx = tile_ray<kBhThreads>(H, W, kBhTileRows);
+  if (idx < 0) return;
   const float rs2 = p.r_s * p.r_s;
   Geodesic g;
   march::geodesic_init(g, origin + 3 * idx, direction + 3 * idx,
@@ -416,7 +444,7 @@ __global__ void __launch_bounds__(kSceneThreads)
     __syncthreads();
     tab = s_tables;
   }
-  const int idx = tile_ray(H, W);
+  const int idx = tile_ray<kSceneThreads>(H, W, kTileRows);
   if (idx < 0) return;
   const float rs2 = p.r_s * p.r_s;
   Geodesic g;
@@ -594,17 +622,28 @@ extern "C" {
 // check reports it.
 // Optional outputs (t_end, died_moving, sstep) may be null.
 int march_bh_launch(const float* origin, const float* direction,
-                    const unsigned char* active, float* fdir, float* status,
-                    float* t_end, unsigned char* died_moving, int n, float r_s,
-                    int max_steps, float max_angle, float u_f, float far_r2,
-                    void* stream) {
+                    const unsigned char* active, int H, int W, float* fdir,
+                    float* status, float* t_end, unsigned char* died_moving,
+                    int n, float r_s, int max_steps, float max_angle,
+                    float u_f, float far_r2, void* stream) {
+  if (H * W != n) return (int)cudaErrorInvalidValue;
   const Params p = make_params(n, r_s, max_steps, max_angle, u_f, far_r2);
-  const int blocks = (n + kThreads - 1) / kThreads;
+  const long long blocks = tile_blocks<kBhThreads>(H, W, kBhTileRows);
   auto kernel =
       t_end != nullptr ? march_bh_kernel<true> : march_bh_kernel<false>;
-  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      origin, direction, active, fdir, status, t_end, died_moving, p);
+  kernel<<<(unsigned)blocks, kBhThreads, 0, (cudaStream_t)stream>>>(
+      origin, direction, active, H, W, fdir, status, t_end, died_moving, p);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks an SM of the current device holds of march_bh_kernel
+// (events: its events instantiation), or -1 if CUDA cannot say.
+int march_bh_blocks_per_sm(int events) {
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, events ? march_bh_kernel<true> : march_bh_kernel<false>,
+      kBhThreads, 0);
+  return err == cudaSuccess ? per_sm : -1;
 }
 
 // tables: the table buffer above in device memory, n_words long, copied
@@ -626,10 +665,7 @@ int march_scene_launch(const float* origin, const float* direction,
                   planes_at, n_planes, cull_half};
   // Above 48 KB of dynamic shared memory the launch fails and says so.
   const size_t shared = shared_tables ? (size_t)n_words * sizeof(float) : 0;
-  const int rows = H >= kTileRows ? kTileRows : 1;
-  const int span = (kSceneThreads / 32) * (32 / rows);
-  const long long blocks =
-      (long long)((W + span - 1) / span) * ((H + rows - 1) / rows);
+  const long long blocks = tile_blocks<kSceneThreads>(H, W, kTileRows);
   const bool ev = t_end != nullptr;
   auto kernel = shared_tables ? (ev ? march_scene_kernel<true, true>
                                     : march_scene_kernel<false, true>)

@@ -275,8 +275,12 @@ def march_bh(origin, direction, active, r_s, cfg: RenderConfig,
         if n:
             max_angle, u_f, far_r2 = march_scalars(cfg)
             lib = _ext.library()
+            # An (H, W) image's warps march 4 x 8 tiles; a 1-D batch is
+            # one row.
+            width = active.shape[-1] if active.dim() else 1
             rc = lib.march_bh_launch(
                 _ext.ptr(origin), _ext.ptr(direction), _ext.ptr(active),
+                n // width, width,
                 _ext.ptr(fdir), _ext.ptr(status), _ext.ptr(ev["t_end"]),
                 _ext.ptr(ev["died_moving"]), n,
                 float(np.float32(float(r_s))), cfg.max_steps, max_angle,

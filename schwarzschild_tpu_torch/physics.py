@@ -42,3 +42,10 @@ def rk4_step(u, du, delta_phi, r_s=1.0):
 def is_radial(direction, normal_vec, epsilon=geo.EPSILON):
     """Radial-trajectory degeneracy test (black_hole.frag:872,902)."""
     return torch.abs(geo.dot(direction, normal_vec)) >= 1.0 - epsilon
+
+
+def binet_energy(u, du, r_s=1.0):
+    """Conserved quantity of the Binet equation: E = du^2 + u^2 (1 - r_s u),
+    whose derivative in phi vanishes along exact solutions; the tests bound
+    the integrator's drift with it."""
+    return du * du + u * u * (1.0 - r_s * u)

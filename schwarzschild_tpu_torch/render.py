@@ -1,6 +1,9 @@
 """Noise fields and image output (counterpart of the parts of
 ``schwarzschild_tpu.render`` the fast renderers use).
 
+PNG files are written by :func:`encode_png`, on the standard library's
+zlib alone, so no frame writer needs an imaging package.
+
 The integer hashes are bit-equal to the JAX package's uint32 lowbias32
 pipeline.  torch has no full uint32 arithmetic, so the hash runs in int64
 with every product reduced mod 2^32; a product of two 32-bit values would
@@ -9,6 +12,10 @@ overflow int64, so :func:`_mul32` splits the constant into 16-bit halves.
 
 from __future__ import annotations
 
+import struct
+import zlib
+
+import numpy as np
 import torch
 
 from .config import resolve_device
@@ -73,7 +80,33 @@ def to_uint8(img):
     return (torch.clamp(img[..., :3], 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
 
-def save_png(img, path):
-    from PIL import Image
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data)))
 
-    Image.fromarray(to_uint8(img).cpu().numpy()).save(path)
+
+def encode_png(rgb_uint8, compress_level: int = 6) -> bytes:
+    """An (H, W, 3) uint8 image (numpy or a tensor) as the bytes of an 8-bit
+    RGB PNG file: every row with filter 0 (none), one zlib stream at
+    ``compress_level`` (0-9; zlib releases the GIL while it compresses)."""
+    if isinstance(rgb_uint8, torch.Tensor):
+        rgb_uint8 = rgb_uint8.cpu().numpy()
+    img = np.ascontiguousarray(rgb_uint8)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"need (H, W, 3) uint8, got {img.dtype} "
+                         f"{img.shape}")
+    h, w, _ = img.shape
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)  # column 0: the filter byte
+    raw[:, 1:] = img.reshape(h, 3 * w)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(),
+                                                compress_level))
+            + _png_chunk(b"IEND", b""))
+
+
+def save_png(img, path, compress_level: int = 6):
+    """Write an (H, W, 3+) float image, quantized by :func:`to_uint8`, as a
+    PNG file."""
+    with open(path, "wb") as f:
+        f.write(encode_png(to_uint8(img), compress_level))

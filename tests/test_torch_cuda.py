@@ -63,6 +63,29 @@ def test_march_bh_kernel_matches_plain(dev, size, drop):
     assert torch.equal(fdir[~active], d[~active])
 
 
+# The tile-mapped horizon kernel computes its plain version's function bit
+# for bit: every plane equal on every lane, with and without the event
+# record.  512 x 512 is config 2's frame; 3 x 40 has fewer rows than a
+# warp tile; 37 x 53 is not a whole number of 4 x 8 tiles; "flat" marches
+# 37 x 53 rays as one row (a 1-D batch).
+@pytest.mark.parametrize("events", [False, True])
+@pytest.mark.parametrize("size", [(512, 512), (3, 40), (37, 53), "flat"])
+def test_march_bh_kernel_equals_plain_on_every_lane(dev, size, events):
+    H, W = (37, 53) if size == "flat" else size
+    o, d, active = _rays(dev, W, H, drop=0.1)
+    if size == "flat":
+        o, d, active = o.reshape(-1, 3), d.reshape(-1, 3), active.reshape(-1)
+    cfg = sp.RenderConfig(width=W, height=H, percent_black=-1.0)
+    got = kernel.march_bh(o, d, active, 1.0, cfg, events=events)
+    ref = kernel.march_bh_torch(o, d, active, 1.0, cfg, events=events)
+    for a, b in zip(got[:2], ref[:2]):
+        assert torch.equal(a, b)
+    if events:
+        for key in ("t_end", "died_moving"):
+            assert torch.equal(got[2][key], ref[2][key]), key
+    assert (ref[1] == kernel.STATUS_CAPTURED).any()
+
+
 @pytest.mark.parametrize("n_slots,opaque", [(4, True), (3, False)])
 def test_march_scene_kernel_matches_plain(dev, n_slots, opaque):
     o, d, active = _rays(dev, 160, 90, drop=0.2)
@@ -320,3 +343,35 @@ def test_march_scene_bwd_checkpoints_match_plain(dev, n_slots):
     ref = kernel_scene.march_scene_bwd_torch(*args)
     _assert_adjoint_close(got, ref)
     assert torch.equal(got[0][~active], ref[0][~active])
+
+
+# The flyby on the card: one march_scene launch a rendered frame,
+# none for a frame whose file exists; the frames equal direct renders.
+def test_render_trajectory_launches_once_per_rendered_frame(dev, tmp_path):
+    from schwarzschild_tpu_torch import animation
+
+    c4 = configs.config4_animation(n_frames=4, device=dev)
+    cfg = dataclasses.replace(c4["cfg"], width=96, height=54)
+
+    def run(**kw):
+        before = kernel_scene.march_scene.launches
+        out = animation.render_trajectory(
+            c4["scene"], cfg, c4["background"], c4["tex"], times=c4["times"],
+            all_frames_local=True, **c4["trajectory"], **kw)
+        torch.cuda.synchronize()
+        return out, kernel_scene.march_scene.launches - before
+
+    frames, launches = run()
+    assert launches == 4
+    cam = cam_mod.hyperbolic_trajectory(
+        cam_mod.make_camera((0.0, 2.0, 15.0), device=dev),
+        time=c4["times"][2], **c4["trajectory"])
+    direct = sp.render_fast(c4["scene"], cam, cfg, c4["background"],
+                            c4["tex"], overflow="ignore")
+    assert torch.equal(frames[2][1], direct.cpu())
+    _, launches = run(out_dir=tmp_path, prefetch=2, encode_workers=2)
+    assert launches == 4
+    (tmp_path / "frame_00002.png").unlink()
+    again, launches = run(out_dir=tmp_path, prefetch=2, encode_workers=2)
+    assert launches == 1
+    assert [i for i, _ in again] == [0, 1, 2, 3]

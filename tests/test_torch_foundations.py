@@ -184,7 +184,8 @@ def test_converted_assets_equal_port_build(name):
                        name, atol=1e-7)
 
 
-@pytest.mark.parametrize("name", ["config2_curved", "config3_full_scene"])
+@pytest.mark.parametrize("name", ["config1_flat", "config2_curved",
+                                  "config3_full_scene", "config4_animation"])
 def test_config_bundles_equal_port_build(name):
     ref = getattr(jconfigs, name)()
     port = getattr(tconfigs, name)(device="cpu")
@@ -192,9 +193,12 @@ def test_config_bundles_equal_port_build(name):
     assert dataclasses.asdict(port["cfg"]) == dataclasses.asdict(ref["cfg"])
     assert (port["tex"] is None) == (ref["tex"] is None)
     for key in ("scene", "camera", "background", "tex"):
-        if ref[key] is not None:
+        if ref.get(key) is not None:
             _assert_tree_close(_np(ref[key]), port[key], f"{name}.{key}",
                                atol=1e-6)
+    if "times" in ref:  # the flyby's frame times and conic
+        np.testing.assert_array_equal(port["times"], ref["times"])
+        assert port["trajectory"] == ref["trajectory"]
 
 
 def test_render_config_converts():

@@ -2,6 +2,7 @@
 turns on one CUDA card.
 
     python3 tools/ab_march.py PATH_A PATH_B [PATH_C ...] [--pairs N]
+                              [--kernels scene,bwd,bh]
 
 N rounds (default 5); each round runs every checkout once, in the given
 order in even rounds and in reverse in odd ones (A, B, then B, A for two).
@@ -17,10 +18,14 @@ call (``*_ms``, host work included: CUDA-event medians of 20 calls):
   * march_scene_bwd at 1280x720 on the events of the plain forward march
     (the same in every checkout) and cotangents from a seeded CPU
     generator, so every checkout gets the same inputs;
-  * march_bh on config-2 rays at 512x512;
+  * march_bh on config-2 rays at 512x512, with ptxas's registers and
+    spills for it where the run built the library, and the resident blocks
+    an SM where a checkout can say (march_bh_blocks_per_sm);
   * the host work of packing the demo scene's tables, which each
     march_scene call does before its launch (``pack_scene_tables_host_ms``,
     host clock, the median of 20 after 3).
+``--kernels`` names the ones to time (default all: scene, bwd, bh; the
+packing goes with scene).
 The rays, the timing and the card line are this repository's
 chip_smoke.py's, whichever checkout is timed.  It prints one JSON line per
 run, one per checkout with each time's median and quartile spread over the
@@ -50,59 +55,72 @@ spec = importlib.util.spec_from_file_location("chip_smoke",
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
 import schwarzschild_tpu_torch as sp
-from schwarzschild_tpu_torch import configs, kernel, kernel_scene
+from schwarzschild_tpu_torch import _ext, configs, kernel, kernel_scene
 
+only = os.environ["AB_KERNELS"].split(",")
+built = _ext.build()
+res = {}
 dev = torch.device("cuda", 0)
-cam = configs.demo_camera(device=dev)
-sc = configs.demo_scene(device=dev)
-tex = configs.demo_texture_stack(device=dev)
 cfg = sp.RenderConfig(width=1280, height=720, percent_black=-1.0)
-o, d, act = smoke.rays(cam, 1280, 720, dev)
-scene = lambda: kernel_scene.march_scene(o, d, act, 1.0, sc, cfg, 4, tex)
-scene_ms = smoke.cuda_ms(scene, warmup=3, reps=20)
-scene_dev = smoke.device_ms(scene, "march_scene_kernel")
-tables_dev = None  # the tables from device memory, where a checkout can
-if hasattr(kernel_scene, "SHARED_TABLE_WORDS"):
-    shared = kernel_scene.SHARED_TABLE_WORDS
-    kernel_scene.SHARED_TABLE_WORDS = 0
-    tables_dev = smoke.device_ms(scene, "march_scene_kernel")
-    kernel_scene.SHARED_TABLE_WORDS = shared
-fwd = kernel_scene.march_scene_torch(o, d, act, 1.0, sc, cfg, 4, tex,
-                                     events=True)
-gen = torch.Generator(device="cpu").manual_seed(0)
-rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
-cts = (rnd(720, 1280, 3), rnd(720, 1280, 3),
-       [(rnd(720, 1280, 3), rnd(720, 1280, 3), rnd(720, 1280))
-        for _ in range(4)])
-bwd = lambda: kernel_scene.march_scene_bwd(o, d, 1.0, cfg, cts, fwd[2],
-                                           fwd[5], 4)
-bwd_ms = smoke.cuda_ms(bwd, warmup=3, reps=20)
-bwd_dev = smoke.device_ms(bwd, "march_scene_bwd_kernel")
-c2 = configs.config2_curved(device=dev)
-o2, d2, act2 = smoke.rays(c2["camera"], 512, 512, dev)
-pack = []
-for _ in range(23):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    kernel_scene._pack_scene_smem(sc, tex)
-    pack.append((time.perf_counter() - t0) * 1e3)
-bh = lambda: kernel.march_bh(o2, d2, act2, 1.0, c2["cfg"])
-bh_ms = smoke.cuda_ms(bh, warmup=3, reps=20)
-bh_dev = smoke.device_ms(bh, "march_bh_kernel")
-print(json.dumps(dict(
-    march_scene_1280x720_device_ms=scene_dev,
-    march_scene_tables_in_device_memory_1280x720_device_ms=tables_dev,
-    march_scene_bwd_1280x720_device_ms=bwd_dev,
-    march_bh_512_device_ms=bh_dev,
-    pack_scene_tables_host_ms=statistics.median(pack[3:]),
-    march_scene_1280x720_ms=scene_ms,
-    march_scene_bwd_1280x720_ms=bwd_ms, march_bh_512_ms=bh_ms)))
+if "scene" in only or "bwd" in only:
+    cam = configs.demo_camera(device=dev)
+    sc = configs.demo_scene(device=dev)
+    tex = configs.demo_texture_stack(device=dev)
+    o, d, act = smoke.rays(cam, 1280, 720, dev)
+if "scene" in only:
+    scene = lambda: kernel_scene.march_scene(o, d, act, 1.0, sc, cfg, 4, tex)
+    res["march_scene_1280x720_device_ms"] = smoke.device_ms(
+        scene, "march_scene_kernel")
+    tables_dev = None  # the tables from device memory, where a checkout can
+    if hasattr(kernel_scene, "SHARED_TABLE_WORDS"):
+        shared = kernel_scene.SHARED_TABLE_WORDS
+        kernel_scene.SHARED_TABLE_WORDS = 0
+        tables_dev = smoke.device_ms(scene, "march_scene_kernel")
+        kernel_scene.SHARED_TABLE_WORDS = shared
+    res["march_scene_tables_in_device_memory_1280x720_device_ms"] = tables_dev
+    pack = []
+    for _ in range(23):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernel_scene._pack_scene_smem(sc, tex)
+        pack.append((time.perf_counter() - t0) * 1e3)
+    res["pack_scene_tables_host_ms"] = statistics.median(pack[3:])
+    res["march_scene_1280x720_ms"] = smoke.cuda_ms(scene, warmup=3, reps=20)
+if "bwd" in only:
+    fwd = kernel_scene.march_scene_torch(o, d, act, 1.0, sc, cfg, 4, tex,
+                                         events=True)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+    cts = (rnd(720, 1280, 3), rnd(720, 1280, 3),
+           [(rnd(720, 1280, 3), rnd(720, 1280, 3), rnd(720, 1280))
+            for _ in range(4)])
+    bwd = lambda: kernel_scene.march_scene_bwd(o, d, 1.0, cfg, cts, fwd[2],
+                                               fwd[5], 4)
+    res["march_scene_bwd_1280x720_device_ms"] = smoke.device_ms(
+        bwd, "march_scene_bwd_kernel")
+    res["march_scene_bwd_1280x720_ms"] = smoke.cuda_ms(bwd, warmup=3,
+                                                       reps=20)
+if "bh" in only:
+    c2 = configs.config2_curved(device=dev)
+    o2, d2, act2 = smoke.rays(c2["camera"], 512, 512, dev)
+    bh = lambda: kernel.march_bh(o2, d2, act2, 1.0, c2["cfg"])
+    res["march_bh_512_device_ms"] = smoke.device_ms(bh, "march_bh_kernel")
+    res["march_bh_512_ms"] = smoke.cuda_ms(bh, warmup=3, reps=20)
+    ptxas = {k: v for k, v in smoke.ptxas_report(built.log).items()
+             if k.startswith("march_bh")}
+    if ptxas:
+        res["march_bh_ptxas"] = ptxas
+    lib = _ext.library()
+    if hasattr(lib, "march_bh_blocks_per_sm"):
+        res["march_bh_blocks_per_sm"] = lib.march_bh_blocks_per_sm(0)
+print(json.dumps(res))
 """
 
 
-def run(path):
+def run(path, kernels):
     env = dict(os.environ, PYTHONPATH=os.path.abspath(path),
-               AB_CHIP_SMOKE=str(ROOT / "chip_smoke.py"))
+               AB_CHIP_SMOKE=str(ROOT / "chip_smoke.py"),
+               AB_KERNELS=kernels)
     out = subprocess.run([sys.executable, "-c", RUN], cwd=path, env=env,
                          capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
@@ -126,6 +144,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("paths", nargs="+")
     ap.add_argument("--pairs", type=int, default=5)
+    ap.add_argument("--kernels", default="scene,bwd,bh")
     args = ap.parse_args()
     if len(args.paths) < 2:
         ap.error("give at least two checkouts")
@@ -133,10 +152,11 @@ def main() -> int:
     for k in range(args.pairs):
         order = args.paths if k % 2 == 0 else args.paths[::-1]
         for path in order:
-            res = run(path)
+            res = run(path, args.kernels)
             print(json.dumps({"pair": k, "path": path, **res}), flush=True)
             for key, ms in res.items():
-                times[path].setdefault(key, []).append(ms)
+                if isinstance(ms, (float, type(None))):
+                    times[path].setdefault(key, []).append(ms)
     for path, by_key in times.items():
         print(json.dumps({"path": path, **{
             key: summary(ms) for key, ms in by_key.items()}}), flush=True)
