@@ -1,8 +1,10 @@
 """schwarzschild_tpu_torch — the Schwarzschild raytracer on PyTorch + CUDA.
 
 The PyTorch counterpart of the JAX package ``schwarzschild_tpu``, module
-for module, with the two geodesic march kernels written by hand in CUDA
-C++ for Hopper (csrc/).  Tensors keep the JAX package's layouts; every
+for module, with the three Pallas kernels (the two geodesic marches and
+the scene march's adjoint) written by hand in CUDA C++ for Hopper
+(csrc/).  ``render`` is the dense differentiable renderer, plain PyTorch,
+as the JAX package's is plain jnp.  Tensors keep the JAX package's layouts; every
 function works on the device its inputs are on.  On a CPU tensor the march
 wrappers run their plain PyTorch versions; on a CUDA tensor they launch the
 kernels, which are built with nvcc at first use.
@@ -25,8 +27,8 @@ from .scene import (
     empty_scene,
     to_device,
 )
-from .intersect import Hit, intersect_scene
-from .render import encode_png, save_png, to_uint8
+from .intersect import Hit, TestRay, intersect_scene
+from .render import encode_png, render, save_png, to_uint8
 from .shading import get_background, shade
 from .textures import Texture, TextureStack, from_array, load_texture, stack_textures
 from .kernel import render_horizon_sky

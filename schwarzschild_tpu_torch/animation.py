@@ -31,7 +31,7 @@ from . import camera as cam_mod
 from .config import RenderConfig
 from .kernel_scene import render_fast
 from .metrics import FrameTimer, MetricsLogger
-from .render import encode_png, to_uint8
+from .render import encode_png, render, to_uint8
 from .sharding import frame_range_for_process
 
 
@@ -77,7 +77,7 @@ def render_trajectory(
     logger: Optional[MetricsLogger] = None,
     overwrite: bool = False,
     all_frames_local: bool = False,
-    renderer: str = "fast",
+    renderer: str = "jnp",
     prefetch: int = 2,
     png_compress_level: int = 1,
     measure_device_ms: bool = False,
@@ -91,9 +91,9 @@ def render_trajectory(
     list of (frame index, PNG path) with ``out_dir``, else of (frame index,
     float image as a CPU tensor), in frame order.
 
-    ``renderer="fast"`` renders each frame with :func:`render_fast`
-    (``overflow="ignore"``); the JAX package's default, ``"jnp"``, needs
-    the dense renderer, which is not ported (ROADMAP.md queue 1 #7).
+    ``renderer="jnp"`` (the default, as in the JAX package) renders each
+    frame with the dense renderer :func:`render.render`, ``"fast"`` with
+    :func:`render_fast` (``overflow="ignore"``).
 
     With ``out_dir`` frames are quantized on the device (:func:`to_uint8`),
     so 3 bytes a pixel cross to the host, and written as
@@ -115,12 +115,7 @@ def render_trajectory(
     ``device_ms_estimate``), and adds it to every frame event as
     ``device_ms_est``.
     """
-    if renderer == "jnp":
-        raise NotImplementedError(
-            "renderer='jnp' needs the dense renderer (render.py of the JAX "
-            "package), which schwarzschild_tpu_torch does not have "
-            "(ROADMAP.md queue 1 #7); use renderer='fast'")
-    if renderer != "fast":
+    if renderer not in ("jnp", "fast"):
         raise ValueError(f"unknown renderer {renderer!r}")
     if times is None:
         times = np.linspace(0.0, 1.0, n_frames)
@@ -136,8 +131,11 @@ def render_trajectory(
             base_cam, initial_distance, closest_distance, float(times[idx]))
 
     def render_one(cam):
-        img = render_fast(sc, cam, cfg, background, tex, r_s,
-                          overflow="ignore")
+        if renderer == "jnp":
+            img = render(sc, cam, cfg, background, tex, r_s)
+        else:
+            img = render_fast(sc, cam, cfg, background, tex, r_s,
+                              overflow="ignore")
         return to_uint8(img) if quantize else img
 
     frame_ids = (range(len(times)) if all_frames_local

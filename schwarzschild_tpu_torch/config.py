@@ -41,7 +41,7 @@ class RenderConfig:
     # Stochastic pixel skip (frag:39,879-881); < 0 disables skipping.
     percent_black: float = 0.75  # main.cpp:66
     # "hash" | "tile" | "glsl" | "none"; "prng" (threefry) is not available
-    # in this package (kernel_scene.noise_field raises).
+    # in this package (noise.noise_field raises).
     noise_mode: str = "hash"
     noise_seed: int = 0
     noise_tile: tuple = (16, 128)

@@ -17,6 +17,7 @@ import torch
 
 from .camera import Camera
 from .config import RenderConfig, resolve_device
+from .intersect import TestRay
 from .scene import (
     BoxesSoA,
     CylindersSoA,
@@ -72,3 +73,9 @@ def texture_stack(src, device=None) -> TextureStack:
 def render_config(src) -> RenderConfig:
     return RenderConfig(**{f.name: getattr(src, f.name)
                            for f in dataclasses.fields(RenderConfig)})
+
+
+def test_ray(src, device=None) -> TestRay:
+    """A JAX ``intersect.TestRay`` (points, num_points int32, flat_origin,
+    flat_dir) as this package's."""
+    return _fields(TestRay, src, device)

@@ -84,6 +84,20 @@ def reflect(incident, normal):
     return incident - 2.0 * dot(normal, incident)[..., None] * normal
 
 
+def project(v, target):
+    """Project v onto target (black_hole.frag:739-741)."""
+    return (dot(v, target) / square_vector(target))[..., None] * target
+
+
+def gram_schmidt(m):
+    """Orthonormalize a column frame keeping the direction of column 1 (up)
+    fixed (black_hole.frag:744-753)."""
+    c0, c1, c2 = m[..., :, 0], m[..., :, 1], m[..., :, 2]
+    c0 = c0 - project(c0, c1)
+    c2 = c2 - project(c2, c1) - project(c2, c0)
+    return torch.stack([normalize(c0), normalize(c1), normalize(c2)], dim=-1)
+
+
 def quat_to_axes(q):
     """Unit quaternion (w, x, y, z) -> column frame (``glm::toMat3``)."""
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]

@@ -3,9 +3,10 @@
 
 Every primitive of every type is intersected at once (rays x primitives)
 and the closest hit is reduced with elementwise selects in the JAX
-package's candidate order: black hole, spheres, planes, disks, hollow
-disks, cylinders, rectangles, boxes; ties keep the earlier candidate.
-The division and square-root guards are the JAX package's.
+package's candidate order: black hole, the debug test ray's flat tube and
+curved tubes, spheres, planes, disks, hollow disks, cylinders, rectangles,
+boxes; ties keep the earlier candidate.  The division and square-root
+guards are the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from .scene import (
     OBJECT_TYPE_RECTANGLE,
     OBJECT_TYPE_SPECIAL,
     OBJECT_TYPE_SPHERE,
+    OBJECT_TYPE_TEST_RAY_CURVED,
+    OBJECT_TYPE_TEST_RAY_FLAT,
     Scene,
 )
 
@@ -51,6 +54,18 @@ def _safe_sqrt(x):
 
 def _safe_asin(x):
     return torch.asin(torch.clamp(x, -1.0 + 1e-7, 1.0 - 1e-7))
+
+
+class TestRay(NamedTuple):
+    """Debug test-ray overlay (black_hole.frag:182-192): a fixed-size (K, 3)
+    polyline with ``num_points`` valid entries (the host-integrated
+    geodesic, :func:`features.calculate_test_ray`) and the un-deflected
+    straight ray beside it."""
+
+    points: torch.Tensor  # (K, 3)
+    num_points: torch.Tensor  # () int32
+    flat_origin: torch.Tensor  # (3,)
+    flat_dir: torch.Tensor  # (3,)
 
 
 class Hit(NamedTuple):
@@ -351,6 +366,64 @@ def black_hole_candidate(origin, direction, max_lambda, r_s):
         obj_type=OBJECT_TYPE_SPECIAL)
 
 
+def tube_frame(diff):
+    """A tube's frame: gram_schmidt(mat3(diff.xzy, diff, diff.zxy)), the
+    axis along ``diff`` (frag:764, 789)."""
+    xzy = diff[..., [0, 2, 1]]
+    zxy = diff[..., [2, 0, 1]]
+    return geo.gram_schmidt(torch.stack([xzy, diff, zxy], dim=-1))
+
+
+def tube_segments(test_ray: TestRay, r_s, extended_length=1000.0):
+    """The curved tube chain's segments i -> i+1: (start (K-1, 3), frame
+    (K-1, 3, 3), length (K-1,), active (K-1,)).  A segment is active for
+    i < num_points - 1; the last one is extended to ``extended_length``
+    when the geodesic's final point lies inside the horizon (frag:782-784,
+    the radius test against r_s).  Inactive segments get the identity
+    frame: their zero-length ``diff`` has none, and a NaN frame would reach
+    the gradients of the rays through the masked candidates."""
+    pts = test_ray.points
+    npts = test_ray.num_points.to(torch.int64)
+    p0 = pts[:-1]
+    diff = pts[1:] - p0
+    seg_idx = torch.arange(pts.shape[0] - 1, device=pts.device)
+    active = (seg_idx < npts - 1) & (npts >= 2)
+    last_inside = geo.length(pts[torch.clamp_min(npts - 1, 0)]) < r_s
+    is_last = seg_idx == npts - 2
+    seg_len = torch.where(is_last & last_inside, extended_length,
+                          geo.length(diff))
+    eye = torch.eye(3, device=pts.device).expand(diff.shape[:-1] + (3, 3))
+    frames = torch.where(active[:, None, None], tube_frame(diff), eye)
+    return p0, frames, seg_len, active
+
+
+def test_ray_candidates(origin, direction, max_lambda, test_ray: TestRay,
+                        radius=0.025, extended_length=1000.0, r_s=1.0):
+    """Test-ray tubes (frag:760-803): one flat cylinder along the straight
+    ray plus the chain of curved segment cylinders (:func:`tube_segments`).
+    Returns (flat, curved) candidate sets."""
+    dev = origin.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    flat = cylinder_candidates(
+        origin, direction, max_lambda, test_ray.flat_origin[None],
+        tube_frame(test_ray.flat_dir)[None],
+        torch.tensor([extended_length], **f32), torch.tensor([radius], **f32),
+        torch.zeros((1,), dtype=torch.int32, device=dev),
+        obj_type=OBJECT_TYPE_TEST_RAY_FLAT)
+    r_s = torch.as_tensor(r_s, **f32).detach()
+    p0, frames, seg_len, active = tube_segments(test_ray, r_s,
+                                                extended_length)
+    n = p0.shape[0]
+    curved = cylinder_candidates(
+        origin, direction, max_lambda, p0, frames, seg_len,
+        torch.full((n,), radius, **f32),
+        torch.zeros((n,), dtype=torch.int32, device=dev),
+        obj_type=OBJECT_TYPE_TEST_RAY_CURVED)
+    curved = curved._replace(valid=curved.valid & active,
+                             dist=torch.where(active, curved.dist, _INF))
+    return flat, curved
+
+
 def _merge_hits(a: Hit, b: Hit) -> Hit:
     """Keep the closer hit; ties keep ``a`` (frag:811)."""
     better = b.dist < a.dist
@@ -374,10 +447,14 @@ _SCALAR_FIELDS = {Hit._fields.index(f) for f in
 
 
 def intersect_scene(origin, direction, max_lambda, sc: Scene,
-                    r_s=1.0) -> Hit:
-    """Closest hit against the black hole + the whole scene
-    (frag:755-822).  ``max_lambda`` < 0 means an unbounded ray."""
+                    r_s=1.0, test_ray: Optional[TestRay] = None) -> Hit:
+    """Closest hit against the black hole, the test ray's tubes (if any)
+    and the whole scene (frag:755-822).  ``max_lambda`` < 0 means an
+    unbounded ray."""
     cands = [black_hole_candidate(origin, direction, max_lambda, r_s)]
+    if test_ray is not None:
+        cands.extend(test_ray_candidates(origin, direction, max_lambda,
+                                         test_ray, r_s=r_s))
     if sc.spheres.radius.shape[0]:
         cands.append(sphere_candidates(
             origin, direction, max_lambda, sc.spheres.pos, sc.spheres.axes,

@@ -1,12 +1,17 @@
-"""Inverse rendering (counterpart of the core of ``schwarzschild_tpu.inverse``):
-fit the black hole's r_s, the camera pose and a disk texture to a target
-image (BASELINE config 5).
+"""Inverse rendering (counterpart of ``schwarzschild_tpu.inverse``): fit
+the black hole's r_s, the camera pose and a disk texture to target images
+(BASELINE config 5).
 
 Parameters live in :class:`InverseParams`, a NamedTuple of tensors; the
 camera's forward and right vectors are free and Gram-Schmidt-orthonormalized
-inside the loss, and r_s goes through softplus so it stays positive.  The
-loss renders through ``render_fast(differentiable=True)``: the march kernel
-forward, the adjoint kernel backward.
+inside the loss, and r_s goes through softplus so it stays positive.  A
+loss renders with the dense differentiable renderer (``renderer="jnp"``,
+``render.render``) or through ``render_fast(differentiable=True)``
+(``renderer="fast"``: the march kernel forward, the adjoint kernel
+backward).  :func:`make_multiview_loss` sums Gaussian-blurred or pooled
+MSEs over views from a calibrated rig, and :func:`cem_fit_pose` searches
+the 11 pose and mass scalars without gradients, as the JAX package's
+config-5 harness drives them before Adam.
 
 The optimizer is optax's chain in the JAX package, rewritten here on
 tensors with optax's arithmetic and step numbering: zero the non-finite
@@ -14,9 +19,8 @@ gradient entries (and count them), clip by global norm, then Adam, with an
 optional cosine-decay schedule.  Checkpoints are ``torch.save`` files
 ``<dir>/step_<N>.pt``.
 
-Not ported yet (ROADMAP.md): ``renderer="jnp"`` and the fetch atlas
-(``pass_atlas``), the CEM pose search, the multiview loss and the Gaussian
-blur.
+The fetch atlas (``pass_atlas``) of the JAX package is not part of this
+package (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from . import geometry as geo
 from .camera import Camera
 from .kernel_scene import render_fast
+from .render import render
 from .textures import TextureStack
 
 
@@ -90,38 +95,220 @@ def realize(params: InverseParams, tex: Optional[TextureStack],
     return cam, r_s, tex
 
 
+def _renderer(name: str):
+    """f(sc, cam, cfg, background, tex, r_s) -> image for a loss:
+    "jnp" the dense differentiable renderer, "fast" render_fast with the
+    adjoint kernel."""
+    if name == "jnp":
+        return render
+    if name == "fast":
+        def fast(sc, cam, cfg, background, tex, r_s):
+            return render_fast(sc, cam, cfg, background, tex, r_s,
+                               overflow="ignore", differentiable=True)
+
+        return fast
+    raise ValueError(f"unknown renderer {name!r}")
+
+
+def _image(x, device):
+    """An image (tensor, numpy array or array-like) as float32 on device."""
+    if not isinstance(x, torch.Tensor):
+        x = np.array(x, np.float32)  # a writable copy
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
 def make_loss(sc, cfg, background, tex: Optional[TextureStack],
-              disk_slot: Optional[int], target, renderer: str = "fast",
+              disk_slot: Optional[int], target, renderer: str = "jnp",
               pass_atlas: bool = False):
     """Mean-squared pixel error of the rendered image against ``target``
     (H, W, 4): ``loss_fn(params) -> scalar tensor``.
 
-    ``renderer="fast"`` renders with ``render_fast(differentiable=True)``.
-    The JAX package's default, "jnp" (its dense twin), and ``pass_atlas``
-    (its prebuilt fetch atlas) are not ported and raise
-    NotImplementedError."""
+    ``renderer="jnp"`` renders with the dense differentiable renderer
+    (``render.render``), ``"fast"`` with ``render_fast(differentiable=True)``.
+    ``pass_atlas`` (the JAX package's prebuilt fetch atlas) is not ported
+    and raises NotImplementedError."""
     if pass_atlas:
         raise NotImplementedError(
             "pass_atlas: the fetch atlas is not part of "
             "schwarzschild_tpu_torch (ROADMAP.md queue 1)")
-    if renderer == "jnp":
-        raise NotImplementedError(
-            "renderer='jnp' needs the dense render.py renderer, which "
-            "schwarzschild_tpu_torch does not have yet (ROADMAP.md queue 1)")
-    if renderer != "fast":
-        raise ValueError(f"unknown renderer {renderer!r}")
-    if not isinstance(target, torch.Tensor):
-        target = np.array(target, np.float32)  # a writable copy
-    target = torch.as_tensor(target, dtype=torch.float32,
-                             device=background.data.device)
+    render_any = _renderer(renderer)
+    target = _image(target, background.data.device)
 
     def loss_fn(params: InverseParams):
         cam, r_s, tex_p = realize(params, tex, disk_slot)
-        img = render_fast(sc, cam, cfg, background, tex_p, r_s,
-                          overflow="ignore", differentiable=True)
+        img = render_any(sc, cam, cfg, background, tex_p, r_s)
         return torch.mean((img - target) ** 2)
 
     return loss_fn
+
+
+def _avg_pool(img, k):
+    h, w, c = img.shape
+    return img[: h // k * k, : w // k * k].reshape(
+        h // k, k, w // k, k, c).mean(dim=(1, 3))
+
+
+def gaussian_blur(img, sigma):
+    """Separable Gaussian blur of an (H, W, C) image, zero-padded (the edge
+    effect is shared by render and target, so it cancels in an MSE).
+
+    Each axis is ``numpy.convolve(mode="same")`` with the normalized kernel
+    of radius int(3 sigma), as the JAX package computes it.  A side shorter
+    than the kernel raises ValueError (the JAX package's reshape fails
+    there).  Unlike pooling, blur keeps subpixel localization (see
+    :func:`make_multiview_loss`)."""
+    if sigma <= 0:
+        return img
+    r = int(3.0 * sigma)
+    if min(img.shape[0], img.shape[1]) < 2 * r + 1:
+        raise ValueError(f"gaussian_blur: image {tuple(img.shape)} has a "
+                         f"side shorter than the sigma={sigma} kernel "
+                         f"({2 * r + 1} taps)")
+    x = np.arange(-r, r + 1)
+    k = np.exp(-x * x / (2.0 * sigma * sigma))
+    # conv1d correlates: the kernel reversed convolves (a no-op here, the
+    # kernel being symmetric).
+    k = torch.as_tensor((k / k.sum())[::-1].copy(), dtype=torch.float32,
+                        device=img.device)
+
+    def conv_axis(a, axis):
+        a2 = torch.movedim(a, axis, -1)
+        out = torch.nn.functional.conv1d(a2.reshape(-1, 1, a2.shape[-1]),
+                                         k[None, None], padding=r)
+        return torch.movedim(out.reshape(a2.shape), -1, axis)
+
+    return conv_axis(conv_axis(img, 0), 1)
+
+
+def make_multiview_loss(sc, cfg, background, tex: Optional[TextureStack],
+                        disk_slot: Optional[int], targets, cam_offsets,
+                        renderer: str = "fast", pyramid=(1,),
+                        blur_sigmas=None, view_weights=None):
+    """Mean MSE over V views; view i renders from the optimized camera
+    translated by the known world-space offset ``cam_offsets[i]``: a
+    calibrated rig whose baseline pins the camera's distance, and with it
+    r_s, which one view cannot separate (the shadow's angular size goes as
+    r_s / |cam|).  Orientation and every other parameter stay shared.
+
+    ``targets``: V (H, W, 4) images; ``cam_offsets``: V (3,) offsets.
+    ``blur_sigmas`` (e.g. (8., 2.)): sum the MSEs of Gaussian-blurred
+    pairs (:func:`gaussian_blur`), each level a smooth basin about sigma
+    pixels wide; otherwise ``pyramid``'s average-pool factors.
+    ``view_weights``: V (H, W) maps multiplying each view's squared
+    difference, normalized by the map's mean (the config-5 harness masks
+    the disk's pixels out of the pose objective with them).  The renderer
+    defaults to "fast", as in the JAX package."""
+    if len(targets) != len(cam_offsets):
+        raise ValueError("one camera offset per target view")
+    render_any = _renderer(renderer)
+    dev = background.data.device
+    offs = [_image(o, dev) for o in cam_offsets]
+    if blur_sigmas is not None:
+        levels, lvl_of = list(blur_sigmas), gaussian_blur
+    else:
+        levels = list(pyramid)
+
+        def lvl_of(img, k):
+            return img if k == 1 else _avg_pool(img, k)
+    tgt_pyr = [[lvl_of(_image(t, dev), k) for k in levels] for t in targets]
+    if view_weights is not None:
+        if len(view_weights) != len(targets):
+            raise ValueError("one weight map per target view")
+        wts = [_image(w, dev)[..., None] for w in view_weights]
+    else:
+        wts = [None] * len(targets)
+
+    def loss_fn(params: InverseParams):
+        cam, r_s, tex_p = realize(params, tex, disk_slot)
+        total = torch.zeros((), device=dev)
+        for tgts, off, w in zip(tgt_pyr, offs, wts):
+            img = render_any(sc, cam._replace(pos=cam.pos + off), cfg,
+                             background, tex_p, r_s)
+            for k, tgt in zip(levels, tgts):
+                d2 = (lvl_of(img, k) - tgt) ** 2
+                if w is None:
+                    total = total + torch.mean(d2)
+                else:
+                    total = total + (torch.mean(w * d2)
+                                     / torch.clamp_min(torch.mean(w), 1e-6))
+        return total / (len(targets) * len(levels))
+
+    return loss_fn
+
+
+def pack_pose(p: InverseParams) -> np.ndarray:
+    """The 11 pose and mass scalars as a float32 numpy vector (r_s_raw,
+    cam_pos, cam_fwd_raw, cam_right_raw, fov): the CEM search space."""
+    return np.concatenate([
+        np.ravel(np.asarray(torch.as_tensor(x).detach().cpu(), np.float32))
+        for x in (p.r_s_raw, p.cam_pos, p.cam_fwd_raw, p.cam_right_raw,
+                  p.fov)])
+
+
+def unpack_pose(v, base: InverseParams) -> InverseParams:
+    """``base`` with its 11 pose and mass scalars taken from ``v``, on the
+    device of ``base.cam_pos``."""
+    v = torch.as_tensor(np.asarray(v, np.float32), device=base.cam_pos.device)
+    return base._replace(r_s_raw=v[0], cam_pos=v[1:4], cam_fwd_raw=v[4:7],
+                         cam_right_raw=v[7:10], fov=v[10])
+
+
+# Default CEM sampling stds per packed dimension: position ~0.3 world
+# units, raw orientation vectors ~0.03 (a few degrees), r_s_raw ~0.3, fov
+# ~3 degrees.
+CEM_DEFAULT_STD = np.array(
+    [0.3, 0.3, 0.3, 0.3, 0.03, 0.03, 0.03, 0.03, 0.03, 0.03, 3.0],
+    np.float32)
+
+
+def cem_fit_pose(loss_fn, p0: InverseParams, n_iters=40, pop=64, elite=16,
+                 init_std=None, seed=0, log_fn=None):
+    """Cross-entropy-method search over the 11 pose and mass scalars
+    (texels and every other field stay at ``p0``): each iteration draws
+    ``pop`` samples around the running mean from
+    ``np.random.default_rng(seed)`` (the first sample is the mean itself),
+    evaluates the loss of each without gradients, and refits the mean and
+    the diagonal std (times 1.1, plus 1e-5) to the ``elite`` best.  The
+    draws are the JAX package's, so on the same loss both search the same
+    points.  A derivative-free search does not share gradient descent's
+    sensitivity to the blurred loss's basins; Adam polishes after it.
+
+    Returns (best params, {"best_loss", "history"}): the best sample seen,
+    or the final mean if it scores no worse; ``history`` the best loss of
+    each iteration."""
+    init_std = (CEM_DEFAULT_STD if init_std is None
+                else np.asarray(init_std, np.float32))
+
+    def batch_loss(V):
+        with torch.no_grad():
+            return np.array([float(loss_fn(unpack_pose(v, p0))) for v in V],
+                            np.float32)
+
+    mu = pack_pose(p0)
+    sig = init_std.copy()
+    rng = np.random.default_rng(seed)
+    best_v, best_l = mu, np.inf
+    history = []
+    for it in range(n_iters):
+        V = mu[None] + sig[None] * rng.standard_normal(
+            (pop, mu.size)).astype(np.float32)
+        V[0] = mu  # elitism: the running mean always competes
+        L = batch_loss(V)
+        L = np.where(np.isfinite(L), L, np.inf)
+        idx = np.argsort(L)[:elite]
+        if L[idx[0]] < best_l:
+            best_l, best_v = float(L[idx[0]]), V[idx[0]].copy()
+        mu = V[idx].mean(0)
+        sig = V[idx].std(0) * 1.1 + 1e-5
+        history.append(float(L[idx[0]]))
+        if log_fn and it % 5 == 0:
+            log_fn(f"cem it{it}: best {L[idx[0]]:.6f} "
+                   f"sig_pos~{float(sig[1:4].mean()):.3f}")
+    # The final mean is the denoised estimate; keep whichever scores better.
+    final_l = float(batch_loss(mu[None])[0])
+    if final_l <= best_l:
+        best_v, best_l = mu, final_l
+    return unpack_pose(best_v, p0), dict(best_loss=best_l, history=history)
 
 
 # ---------------------------------------------------------------------------
@@ -360,12 +547,12 @@ class _Checkpointer:
 
 def fit(sc, cfg, background, tex, disk_slot, target, cam0, r_s0=0.7,
         n_steps=200, learning_rate=2e-2, checkpoint_dir=None,
-        checkpoint_every=50, log_every=10, log_fn=print, renderer="fast"):
+        checkpoint_every=50, log_every=10, log_fn=print, renderer="jnp"):
     """Optimize from ``cam0`` and ``r_s0`` for ``n_steps`` steps: (params,
     loss history).  With ``checkpoint_dir`` it resumes from the latest
     checkpoint there, and the history it returns covers every step,
-    including those before the resume.  The JAX package's default renderer
-    is "jnp"; here it is "fast", the one ported."""
+    including those before the resume.  ``renderer`` as in
+    :func:`make_loss`."""
     params = init_params(cam0, r_s0, tex, disk_slot)
     optimizer = default_optimizer(learning_rate)
     opt_state = optimizer.init(params)

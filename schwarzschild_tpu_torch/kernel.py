@@ -25,7 +25,7 @@ from . import camera as cam_mod
 from . import geometry as geo
 from . import physics
 from .config import FLAT, HALF_HEIGHT, HALF_WIDTH, RenderConfig
-from .render import glsl_rand, pixel_hash_rand, tile_hash_rand
+from .noise import noise_field
 from .shading import CROSSHAIR_COLOR, crosshair_mask, get_background
 from .textures import Texture
 
@@ -342,39 +342,20 @@ def march_bh_diff(origin, direction, active, r_s, cfg: RenderConfig):
 # ---------------------------------------------------------------------------
 
 
-def noise_field(cfg: RenderConfig, u_ndc, v_ndc):
-    """The per-pixel random field behind the noise-skip mask
-    (frag:879-881) for cfg's ``noise_mode``; zeros when noise is off."""
-    dev = u_ndc.device
-    if cfg.percent_black >= 0.0 and cfg.noise_mode != "none":
-        if cfg.noise_mode == "glsl":
-            uv_vec = torch.stack(
-                [u_ndc, v_ndc * (cfg.height / cfg.width)], dim=-1)
-            return glsl_rand(uv_vec)
-        if cfg.noise_mode == "hash":
-            return pixel_hash_rand(cfg.width, cfg.height, cfg.noise_seed,
-                                   device=dev)
-        if cfg.noise_mode == "tile":
-            return tile_hash_rand(cfg.width, cfg.height, cfg.noise_seed,
-                                  cfg.noise_tile, device=dev)
-        if cfg.noise_mode == "prng":
-            raise ValueError(
-                "noise_mode='prng' draws from JAX's threefry generator, whose "
-                "bits torch cannot reproduce; use 'hash', 'tile' or 'glsl'")
-        raise ValueError(f"unknown noise_mode {cfg.noise_mode!r}")
-    return torch.zeros(u_ndc.shape, device=dev)
-
-
-def pixel_setup(cam, cfg: RenderConfig, device):
-    """Rays and per-pixel masks shared by both frames: a dict with u, v,
+def pixel_setup(cam, cfg: RenderConfig, device, rows=None):
+    """Rays and per-pixel masks shared by the frames: a dict with u, v,
     origin, direction, base (crosshair overlay), flat_px, noise_skip,
-    march_px and normal_vec0."""
+    march_px and normal_vec0.  ``rows=(r0, r1)`` keeps image rows [r0, r1)
+    of the full frame; the noise field is built at full size and sliced,
+    so every value equals the full frame's."""
     if cfg.texture_filter != "bilinear":
         raise NotImplementedError(
             f"texture_filter={cfg.texture_filter!r}: only 'bilinear' is "
             "available in schwarzschild_tpu_torch")
     H, W = cfg.height, cfg.width
-    u, v = cam_mod.pixel_grid(W, H, device=device)
+    u_full, v_full = cam_mod.pixel_grid(W, H, device=device)
+    r0, r1 = (0, H) if rows is None else rows
+    u, v = u_full[r0:r1], v_full[r0:r1]
     origin, direction = cam_mod.generate_rays(cam, u, v, W, H)
     batch = u.shape
 
@@ -395,7 +376,7 @@ def pixel_setup(cam, cfg: RenderConfig, device):
 
     normal_vec0 = geo.safe_normalize(origin)
     flat_px = mode_flat | physics.is_radial(direction, normal_vec0)
-    rnd = noise_field(cfg, u, v)
+    rnd = noise_field(cfg, u_full, v_full)[r0:r1]
     if cfg.percent_black >= 0.0 and cfg.noise_mode != "none":
         noise_skip = ~flat_px & (rnd <= cfg.percent_black)
     else:

@@ -40,7 +40,7 @@ from . import _ext
 from . import geometry as geo
 from . import physics
 from .config import FLAT, RenderConfig
-from .intersect import intersect_scene
+from .intersect import TestRay, intersect_scene, tube_frame, tube_segments
 from .kernel import (  # noqa: F401  (statuses and noise_field are public here too)
     STATUS_CAPTURED,
     STATUS_ESCAPED,
@@ -127,11 +127,39 @@ def _opaque_flags(sc: Scene, tex: Optional[TextureStack]):
     return flags
 
 
-def _pack_scene_smem(sc: Scene, tex: Optional[TextureStack] = None):
+def _test_ray_cylinder_rows(test_ray: TestRay, r_s, radius=0.025,
+                            extended_length=1000.0):
+    """Debug test-ray tubes (frag:760-803) as (1 + K-1, 14) float32 numpy
+    cylinder rows [pos, axes columns, height, radius] for the kernel's
+    validity test: the straight (flat, green) tube, then the chain of
+    curved (red) segment tubes (kernel_scene.py:70-118 of the JAX
+    package).  The frames are :func:`intersect.tube_frame`'s, computed on
+    the host, so the rows and the composition's re-intersection share one
+    realization.  Inactive chain slots get height -1 (no point passes the
+    y in [0, height] test) and the identity frame (no NaN in the tables)."""
+    tr = TestRay(*(x.detach().cpu() for x in test_ray))
+    r_s = torch.tensor(float(r_s), dtype=torch.float32)
+    p0, frames, seg_len, active = tube_segments(tr, r_s, extended_length)
+    height = torch.where(active, seg_len, -1.0)
+
+    def rows(pos, fr, h):
+        return torch.cat([pos, fr[:, :, 0], fr[:, :, 1], fr[:, :, 2],
+                          h[:, None], torch.full_like(h[:, None], radius)], 1)
+
+    flat = rows(tr.flat_origin[None], tube_frame(tr.flat_dir)[None],
+                torch.tensor([extended_length]))
+    return torch.cat([flat, rows(p0, frames, height)]).numpy()
+
+
+def _pack_scene_smem(sc: Scene, tex: Optional[TextureStack] = None,
+                     test_ray: Optional[TestRay] = None, r_s=1.0):
     """Scene -> dict of float32 (N, F) numpy tables, each with a trailing
     "provably opaque" column (all zero without ``tex``), the columns of the
-    JAX package's tables (kernel_scene.py:182-270 there; test-ray tube rows
-    are not available here):
+    JAX package's tables (kernel_scene.py:182-270 there).  ``test_ray``
+    appends its tube rows (:func:`_test_ray_cylinder_rows`, horizon radius
+    ``r_s``) to the cylinders, marked opaque (the tube colours have alpha
+    1, frag:191-192), so a tube stops the ray like the reference's
+    first-opaque break.
 
     spheres (N,5) [pos, radius, opq]        planes (N,7) [pos, normal, opq]
     disks (N,8) [pos, normal, r^2, opq]     hollow (N,9) [pos, normal, in^2, out^2, opq]
@@ -173,6 +201,12 @@ def _pack_scene_smem(sc: Scene, tex: Optional[TextureStack] = None):
             [f(sc.cylinders.pos), ax[:, :, 0], ax[:, :, 1], ax[:, :, 2],
              f(sc.cylinders.height)[:, None], f(sc.cylinders.radius)[:, None],
              col("cylinders")], 1)
+    if test_ray is not None:
+        tubes = _test_ray_cylinder_rows(test_ray, r_s)
+        tubes = np.concatenate([tubes, np.ones((len(tubes), 1), np.float32)],
+                               1)
+        out["cylinders"] = np.concatenate(
+            [out["cylinders"], tubes]) if "cylinders" in out else tubes
     rect_rows = []
     if sc.rectangles.mat_idx.shape[0]:
         ax = f(sc.rectangles.axes)
@@ -538,12 +572,13 @@ def _split_slots(start, sdir, slen):
 def march_scene_torch(origin, direction, active, r_s, sc: Scene,
                       cfg: RenderConfig, n_slots: int = 4,
                       tex: Optional[TextureStack] = None,
-                      events: bool = False):
+                      events: bool = False,
+                      test_ray: Optional[TestRay] = None):
     """Plain version of the scene march: (final_dir, final_pos, status,
     slots, nhits), slots a list of K (start (...,3), dir (...,3), len), and
     with ``events`` the dict of :func:`march_scene`."""
     p = _march_scene_planes_torch(origin, direction, active, r_s, sc, cfg,
-                                  n_slots, tex)
+                                  n_slots, tex, test_ray=test_ray)
     return _as_outputs(p, events, False, cfg)
 
 
@@ -560,7 +595,8 @@ def _as_outputs(p, events, count_steps, cfg):
 
 def _march_scene_planes_torch(origin, direction, active, r_s, sc: Scene,
                               cfg: RenderConfig, n_slots: int,
-                              tex: Optional[TextureStack], on_segment=None):
+                              tex: Optional[TextureStack], on_segment=None,
+                              test_ray: Optional[TestRay] = None):
     """The plain scene march as a dict of planes (fdir, fpos, status, nhits,
     start, sdir, slen, t_end, sstep), slots stacked on a leading K axis.
     ``on_segment(live, px, py, pz, sdx, sdy, sdz, seg_len)``, if given, sees
@@ -570,7 +606,7 @@ def _march_scene_planes_torch(origin, direction, active, r_s, sc: Scene,
     r_s = torch.as_tensor(r_s, dtype=torch.float32, device=dev)
     rs2 = r_s * r_s
     max_angle, u_f, far_r2 = march_scalars(cfg)
-    tables = _pack_scene_smem(sc, tex)
+    tables = _pack_scene_smem(sc, tex, test_ray, r_s)
     s = _init_march(origin, direction, active)
     nh = torch.zeros(active.shape, device=dev)
     start = torch.zeros((n_slots,) + origin.shape, device=dev)
@@ -630,12 +666,14 @@ def _march_scene_planes_torch(origin, direction, active, r_s, sc: Scene,
 
 def march_scene(origin, direction, active, r_s, sc: Scene, cfg: RenderConfig,
                 n_slots: int = 4, tex: Optional[TextureStack] = None,
-                events: bool = False, count_steps: bool = False):
+                events: bool = False, count_steps: bool = False,
+                test_ray: Optional[TestRay] = None):
     """Scene march of (..., 3) rays: (final_dir, final_pos, status, slots,
     nhits); ``nhits`` counts every hit (uncapped), so ``nhits > n_slots``
     flags rays whose extra hits were dropped.  ``tex`` (the stack the hits
     will be shaded with) enables the in-kernel stop on provably opaque
-    primitives.
+    primitives.  ``test_ray`` adds its tubes to the cylinder table (opaque
+    rows; see :func:`_pack_scene_smem`).
 
     ``events=True`` appends the dict {"t_end": (...), "ssteps": [(...)] * K}
     that the backward needs: the step of each ray's terminal event
@@ -649,13 +687,14 @@ def march_scene(origin, direction, active, r_s, sc: Scene, cfg: RenderConfig,
     A CUDA tensor launches ``march_scene_kernel`` (counted in
     ``march_scene.launches``); a CPU tensor runs :func:`march_scene_torch`."""
     p = _march_scene_planes(origin, direction, active, r_s, sc, cfg, n_slots,
-                            tex, events or count_steps)
+                            tex, events or count_steps, test_ray)
     return _as_outputs(p, events, count_steps, cfg)
 
 
 def _march_scene_planes(origin, direction, active, r_s, sc: Scene,
                         cfg: RenderConfig, n_slots: int,
-                        tex: Optional[TextureStack], want_events: bool):
+                        tex: Optional[TextureStack], want_events: bool,
+                        test_ray: Optional[TestRay] = None):
     """:func:`march_scene` as a dict of planes (see
     :func:`_march_scene_planes_torch`); t_end and sstep are None on the card
     unless ``want_events``."""
@@ -664,9 +703,9 @@ def _march_scene_planes(origin, direction, active, r_s, sc: Scene,
         raise ValueError(f"n_slots must be >= 0, got {n_slots}")
     if origin.device.type == "cpu":
         return _march_scene_planes_torch(origin, direction, active, r_s, sc,
-                                         cfg, n_slots, tex)
+                                         cfg, n_slots, tex, test_ray=test_ray)
     dev = origin.device
-    tables = _pack_scene_smem(sc, tex)
+    tables = _pack_scene_smem(sc, tex, test_ray, r_s)
     for name, width in TABLE_COLUMNS:  # the kernel's fixed row layout
         if name in tables and tables[name].shape[1] != width:
             raise ValueError(f"{name} table rows have "
@@ -1161,9 +1200,10 @@ class _MarchSceneDiff(torch.autograd.Function):
     tuples."""
 
     @staticmethod
-    def forward(ctx, origin, direction, r_s, active, sc, cfg, n_slots, tex):
+    def forward(ctx, origin, direction, r_s, active, sc, cfg, n_slots, tex,
+                test_ray):
         p = _march_scene_planes(origin, direction, active, r_s, sc, cfg,
-                                n_slots, tex, True)
+                                n_slots, tex, True, test_ray)
         ctx.save_for_backward(origin, direction, r_s, p["status"],
                               p["t_end"], p["sstep"])
         ctx.cfg, ctx.n_slots = cfg, n_slots
@@ -1189,12 +1229,13 @@ class _MarchSceneDiff(torch.autograd.Function):
         g_o, g_d, g_rs = march_scene_bwd(
             origin, direction, r_s, ctx.cfg, (g_fdir, g_fpos, slots), status,
             dict(t_end=t_end, ssteps=list(sstep)), n_slots=K)
-        return g_o, g_d, g_rs.reshape(r_s.shape), None, None, None, None, None
+        return (g_o, g_d, g_rs.reshape(r_s.shape)) + (None,) * 6
 
 
 def march_scene_diff(origin, direction, active, r_s, sc: Scene,
                      cfg: RenderConfig, n_slots: int = 4,
-                     tex: Optional[TextureStack] = None):
+                     tex: Optional[TextureStack] = None,
+                     test_ray: Optional[TestRay] = None):
     """Differentiable :func:`march_scene`: the forward kernel with its event
     planes, and the adjoint kernel (:func:`march_scene_bwd`) as backward.
     Gradients reach (origin, direction, r_s) at the decisions the forward
@@ -1205,7 +1246,7 @@ def march_scene_diff(origin, direction, active, r_s, sc: Scene,
     :func:`march_scene` returns."""
     r_s = _f32(r_s, origin.device)
     fdir, fpos, status, nhits, start, sdir, slen = _MarchSceneDiff.apply(
-        origin, direction, r_s, active, sc, cfg, n_slots, tex)
+        origin, direction, r_s, active, sc, cfg, n_slots, tex, test_ray)
     return fdir, fpos, status, _split_slots(start, sdir, slen), nhits
 
 
@@ -1238,12 +1279,14 @@ def render_fast(
     backward) and composes with torch autograd, so gradients reach ``r_s``,
     the camera's tensors, the background texels and the texture stack; a
     stack that requires grad gives the march no opaque stop, as a traced
-    stack does in the JAX package.  The remaining keywords name options of
-    the JAX package that this package does not have; any value but the
-    default raises NotImplementedError."""
+    stack does in the JAX package.  ``test_ray`` (a
+    :class:`intersect.TestRay`) draws the debug tubes: they ride the march
+    kernel's cylinder table and the composition's re-intersection.  The
+    remaining keywords name options of the JAX package that this package
+    does not have; any value but the default raises NotImplementedError."""
     if overflow not in ("warn", "return", "ignore"):
         raise ValueError(f"unknown overflow mode {overflow!r}")
-    reject_unported(test_ray=test_ray, mesh=mesh, precomputed=precomputed,
+    reject_unported(mesh=mesh, precomputed=precomputed,
                     compact_slots=compact_slots, atlas=atlas)
     dev = background.data.device
     r_s = torch.as_tensor(r_s, dtype=torch.float32, device=dev)
@@ -1256,7 +1299,7 @@ def render_fast(
         march = march_scene_diff if differentiable else march_scene
         fdir, fpos, status, slots, nhits = march(
             origin, direction, march_px, r_s, sc, cfg, n_slots=n_slots,
-            tex=tex if opaque_stop else None)
+            tex=tex if opaque_stop else None, test_ray=test_ray)
     else:
         fdir, fpos = direction, origin
         status = torch.full(batch, STATUS_ESCAPED, device=dev)
@@ -1305,7 +1348,7 @@ def render_fast(
         # fall off the end of its own segment.
         window = torch.where(fold, -1.0,
                              torch.where(rec, slen * 1.0001 + 1e-5, 1.0))
-        hit = intersect_scene(safe_start, safe_dir, window, sc, r_s)
+        hit = intersect_scene(safe_start, safe_dir, window, sc, r_s, test_ray)
         rgba = shade(hit, -safe_dir, sc, tex)
         take = eff & open_ & hit.valid
         opaque_take = take & (rgba[..., 3] == 1.0)

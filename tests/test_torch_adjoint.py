@@ -2,8 +2,11 @@
 on the CPU: the forward's event planes, the hand-written VJP of one step
 (``diff_step_vjp_torch``) against torch autograd and ``jax.vjp``, the plain
 version of the adjoint kernel (``march_scene_bwd_torch``) against the Pallas
-``march_scene_bwd`` in interpret mode, and the differentiable marches
-against JAX's gradients.  Each JAX reference runs once per module."""
+``march_scene_bwd`` in interpret mode, the differentiable marches against
+JAX's gradients, and the ``backward="twin"`` renderers against the JAX
+twin's gradients.  Each JAX reference runs once per module."""
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -375,3 +378,88 @@ def test_flat_finish_capture_is_not_a_move():
         o, d, 1.0, cfg, (w, torch.zeros_like(o), []), status,
         dict(t_end=ev["t_end"], ssteps=[]), n_slots=0)
     assert not torch.allclose(moved[1][0, 0], w[0, 0])
+
+
+# ---------------------------------------------------------------------------
+# backward="twin": the kernel frame forward, the dense renderer's VJP back.
+# ---------------------------------------------------------------------------
+
+TWIN_CFG = st.RenderConfig(width=24, height=16, max_steps=20,
+                           percent_black=-1.0, checkpoint_every=10)
+
+
+def _twin_scene(pkg, **kw):
+    """A hollow disk and a sphere, untextured (the JAX dense gradient of a
+    small scene compiles in seconds)."""
+    return pkg.build_scene([pkg.HollowDisk(material=pkg.Material()),
+                            pkg.Sphere(pos=(-7.0, -0.5, 7.0), radius=0.6,
+                                       material=pkg.Material())], [], **kw)
+
+
+@pytest.fixture(scope="module")
+def twin_case():
+    """jax.vjp of the JAX dense renderer, which is what its twin backward
+    returns, on the empty scene (the horizon twin) and on _twin_scene, with
+    respect to r_s, cam.pos, cam.fov and the background texels, for the
+    cotangent w."""
+    jrender = importlib.import_module("schwarzschild_tpu.render")
+    cam = jconfigs.demo_camera()
+    bg = jconfigs.background_texture()
+    w = np.random.default_rng(7).random((16, 24, 4)).astype(np.float32)
+    scenes = {"horizon": st.empty_scene(), "scene": _twin_scene(st)}
+
+    def grads(r_s, pos, fov, bg_data):
+        out = []
+        for sc in scenes.values():
+            def loss(r_s, pos, fov, bg_data, sc=sc):
+                img = jrender.render(sc, cam._replace(pos=pos, fov=fov),
+                                     TWIN_CFG, bg._replace(data=bg_data),
+                                     None, r_s)
+                return jnp.sum(img * w)
+
+            out.append(jax.grad(loss, argnums=range(4))(r_s, pos, fov,
+                                                        bg_data))
+        return out
+
+    ref = jax.jit(grads)(jnp.float32(1.0), cam.pos, cam.fov, bg.data)
+    return dict(cam=cam, bg=bg, w=w,
+                ref=dict(zip(scenes, ([np.asarray(g) for g in r]
+                                      for r in ref))))
+
+
+@pytest.mark.parametrize("kind", ["horizon", "scene"])
+def test_twin_backward_matches_jax(twin_case, kind):
+    """adjoint.make_diff_horizon_sky / make_diff_scene_renderer with
+    backward="twin": the image is the kernel frame's (here its plain
+    version), bit for bit, and the gradients in r_s, cam.pos, cam.fov and
+    the background texels are the JAX twin's (tests/test_kernel_scene.py's
+    rule, rtol 2e-2, atol 1e-3)."""
+    from schwarzschild_tpu_torch import adjoint
+
+    c = twin_case
+    cfg = convert.render_config(TWIN_CFG)
+    cam = convert.camera(_np(c["cam"]), device="cpu")
+    bg = convert.texture(_np(c["bg"]), device="cpu")
+    if kind == "horizon":
+        f = adjoint.make_diff_horizon_sky(cfg, backward="twin")
+        plain = tkernel.render_horizon_sky(cam, cfg, bg, 1.0)
+    else:
+        sc = _twin_scene(sp, device="cpu")
+        f = adjoint.make_diff_scene_renderer(cfg, sc, None, backward="twin")
+        plain = tks.render_fast(sc, cam, cfg, bg, None, 1.0,
+                                overflow="ignore")
+    leaves = [torch.tensor(1.0), cam.pos.clone(), cam.fov.clone(),
+              bg.data.clone()]
+    for x in leaves:
+        x.requires_grad_(True)
+    r_s, pos, fov, bg_data = leaves
+    img = f(cam._replace(pos=pos, fov=fov), bg_data, r_s)
+    assert torch.equal(img.detach(), plain)
+    grads = torch.autograd.grad((img * torch.from_numpy(c["w"])).sum(),
+                                leaves)
+    for name, g, ref in zip(("r_s", "cam.pos", "cam.fov", "background"),
+                            grads, c["ref"][kind]):
+        assert np.isfinite(g.numpy()).all(), name
+        np.testing.assert_allclose(g.numpy(), ref, rtol=2e-2, atol=1e-3,
+                                   err_msg=name)
+    assert float(grads[0]) != 0.0 and (grads[3] != 0).any()

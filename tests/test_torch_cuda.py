@@ -313,6 +313,63 @@ def test_march_scene_kernel_tables_past_shared_memory(dev):
     _assert_every_lane_equal(got, ref)
 
 
+# The debug test ray's tubes ride the cylinder table (101 rows: the flat
+# tube, the chain, the inactive rows of height -1): every plane equal on
+# every lane through both table routes, for the demo camera's radial ray
+# and a ray that bends into the horizon (34 points), seen from the demo
+# camera and from the side.
+@pytest.mark.parametrize("tables", ["shared", "device"])
+@pytest.mark.parametrize("aim", [None, (2.5, 0.0, 0.0)])
+@pytest.mark.parametrize("view", ["demo", "side"])
+def test_march_scene_tube_rows_equal_plain_on_every_lane(dev, tables, aim,
+                                                         view, monkeypatch):
+    from schwarzschild_tpu_torch import features
+
+    if tables == "device":
+        monkeypatch.setattr(kernel_scene, "SHARED_TABLE_WORDS", 0)
+    demo = configs.demo_camera(device=dev)
+    src = demo if aim is None else cam_mod.look_at(
+        demo, torch.tensor(aim, device=dev))
+    tr = features.calculate_test_ray(src, device=dev)
+    cam = demo if view == "demo" else cam_mod.look_at(
+        cam_mod.make_camera((6.0, 3.0, 6.0), fov=30.0, device=dev),
+        torch.tensor((1.2, 0.4, 3.0), device=dev))
+    W, H = 96, 64
+    u, v = cam_mod.pixel_grid(W, H, device=dev)
+    o, d = cam_mod.generate_rays(cam, u, v, W, H)
+    active = ~physics.is_radial(d, geo.safe_normalize(o))
+    cfg = sp.RenderConfig(width=W, height=H, percent_black=-1.0)
+    sc, tex = _scene_of("demo", dev)
+    got = kernel_scene.march_scene(o, d, active, 1.0, sc, cfg, 6, tex,
+                                   events=True, test_ray=tr)
+    ref = kernel_scene.march_scene_torch(o, d, active, 1.0, sc, cfg, 6, tex,
+                                         events=True, test_ray=tr)
+    _assert_every_lane_equal(got, ref)
+
+
+# The dense renderer is plain torch: on the card it matches the CPU frame,
+# with the test ray, and render_fast with tubes matches it.
+def test_dense_render_on_card_matches_cpu(dev):
+    from schwarzschild_tpu_torch import features
+
+    cfg = sp.RenderConfig(width=48, height=32, max_steps=60,
+                          percent_black=-1.0)
+    frames = []
+    for device in (dev, torch.device("cpu")):
+        tr = features.calculate_test_ray(configs.demo_camera(device=device),
+                                         device=device)
+        args = (configs.demo_scene(device=device),
+                configs.demo_camera(device=device), cfg,
+                configs.background_texture(device=device),
+                configs.demo_texture_stack(device=device), 1.0)
+        frames.append((sp.render(*args, test_ray=tr),
+                       sp.render_fast(*args, n_slots=6, test_ray=tr)))
+    (dense, fast), (cpu_dense, _) = frames
+    for a, b in ((dense.cpu(), cpu_dense), (fast, dense)):
+        share = ((a - b).abs().amax(-1) < 2e-3).float().mean().item()
+        assert share >= 0.99, share
+
+
 # The checkpointed adjoint: 37 steps is not a whole number of checkpoint
 # intervals; u_f = 0.1 puts the far-field sphere at r = 10, inside the
 # camera's r = 15.1, so rays re-enter it at their first step; a fifth of
@@ -357,7 +414,8 @@ def test_render_trajectory_launches_once_per_rendered_frame(dev, tmp_path):
         before = kernel_scene.march_scene.launches
         out = animation.render_trajectory(
             c4["scene"], cfg, c4["background"], c4["tex"], times=c4["times"],
-            all_frames_local=True, **c4["trajectory"], **kw)
+            all_frames_local=True, renderer="fast", **c4["trajectory"],
+            **kw)
         torch.cuda.synchronize()
         return out, kernel_scene.march_scene.launches - before
 

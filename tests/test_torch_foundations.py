@@ -24,13 +24,14 @@ from schwarzschild_tpu_torch import camera as tcam
 from schwarzschild_tpu_torch import configs as tconfigs
 from schwarzschild_tpu_torch import convert
 from schwarzschild_tpu_torch import geometry as tgeo
+from schwarzschild_tpu_torch import noise as tnoise
 from schwarzschild_tpu_torch import intersect as tint
 from schwarzschild_tpu_torch import physics as tphys
-from schwarzschild_tpu_torch import render as trender
 from schwarzschild_tpu_torch import shading as tshade
 from schwarzschild_tpu_torch import textures as ttex
 
-# The package exports a function named ``render`` that hides the module.
+# Both packages export a function named ``render`` that hides the module.
+trender = importlib.import_module("schwarzschild_tpu_torch.render")
 jrender = importlib.import_module("schwarzschild_tpu.render")
 
 
@@ -151,9 +152,9 @@ def test_quaternion_frames_match():
 def test_pixel_hash_bit_equal(seed):
     ref = jrender.pixel_hash_rand_np(53, 29, seed)
     np.testing.assert_array_equal(
-        trender.pixel_hash_rand(53, 29, seed, device="cpu").numpy(), ref)
+        tnoise.pixel_hash_rand(53, 29, seed, device="cpu").numpy(), ref)
     np.testing.assert_array_equal(
-        trender.pixel_hash_rand(53, 29, seed, device="cpu").numpy(),
+        tnoise.pixel_hash_rand(53, 29, seed, device="cpu").numpy(),
         np.asarray(jrender.pixel_hash_rand(53, 29, seed)))
 
 
@@ -162,7 +163,7 @@ def test_pixel_hash_bit_equal(seed):
 def test_tile_hash_bit_equal(seed, tile):
     ref = jrender.tile_hash_rand_np(300, 40, seed, tile)
     np.testing.assert_array_equal(
-        trender.tile_hash_rand(300, 40, seed, tile, device="cpu").numpy(), ref)
+        tnoise.tile_hash_rand(300, 40, seed, tile, device="cpu").numpy(), ref)
 
 
 @pytest.mark.parametrize("name", ["demo_scene", "_orbiting_planets_scene"])

@@ -146,7 +146,7 @@ def test_train_step_matches_jax(config5, jax_step):
     assert torch.equal(ttex.data, t["tex"].data)
 
     loss_fn = tinv.make_loss(t["scene"], t["cfg"], t["background"], t["tex"],
-                             DISK, target)
+                             DISK, target, renderer="fast")
     leaves = [x.clone().requires_grad_(True) for x in tp]
     tloss = loss_fn(tinv.InverseParams(*leaves))
     tgrads = torch.autograd.grad(tloss, leaves)
@@ -168,16 +168,26 @@ def test_train_step_matches_jax(config5, jax_step):
 
 
 def test_loss_options_not_ported(config5):
+    """pass_atlas still raises; renderer="jnp" and backward="twin" are
+    ported since (held to JAX in test_make_loss_jnp_matches_jax and
+    tests/test_torch_adjoint.py): here they build and run."""
     _, t, target = config5
     args = (t["scene"], t["cfg"], t["background"], t["tex"], 5, target)
     with pytest.raises(NotImplementedError):
-        tinv.make_loss(*args, renderer="jnp")
-    with pytest.raises(NotImplementedError):
         tinv.make_loss(*args, pass_atlas=True)
+    with pytest.raises(ValueError):
+        tinv.make_loss(*args, renderer="nope")
+    small = dataclasses.replace(t["cfg"], width=8, height=6, max_steps=10)
+    params = tinv.init_params(t["camera"], 0.7)
+    loss = tinv.make_loss(t["scene"], small, t["background"], t["tex"], None,
+                          np.zeros((6, 8, 4), np.float32), renderer="jnp")
+    assert np.isfinite(float(loss(params)))
     from schwarzschild_tpu_torch import adjoint
 
-    with pytest.raises(NotImplementedError):
-        adjoint.make_diff_horizon_sky(t["cfg"], backward="twin")
+    f = adjoint.make_diff_horizon_sky(small, backward="twin")
+    assert f(t["camera"], t["background"].data, 1.0).shape == (6, 8, 4)
+    with pytest.raises(ValueError):
+        adjoint.make_diff_horizon_sky(small, backward="nope")
 
 
 @pytest.mark.parametrize("decay_steps", [None, 3])
@@ -218,7 +228,7 @@ def test_fit_resume_gives_the_same_history(tmp_path):
                             c["tex"], 1.0, overflow="ignore")
     args = (c["scene"], cfg, c["background"], c["tex"], 5, target,
             c["camera"])
-    kw = dict(r_s0=0.7, log_fn=lambda s: None)
+    kw = dict(r_s0=0.7, log_fn=lambda s: None, renderer="fast")
     _, full = tinv.fit(*args, n_steps=4, **kw)
     _, first = tinv.fit(*args, n_steps=2, checkpoint_dir=tmp_path,
                         checkpoint_every=1, **kw)
@@ -227,9 +237,163 @@ def test_fit_resume_gives_the_same_history(tmp_path):
     messages = []
     params, resumed = tinv.fit(*args, n_steps=4, checkpoint_dir=tmp_path,
                                checkpoint_every=1, log_fn=messages.append,
-                               r_s0=0.7)
+                               r_s0=0.7, renderer="fast")
     assert messages[0] == "resumed from step 2"
     assert resumed[:2] == first
     np.testing.assert_allclose(resumed, full, rtol=1e-6)
     assert np.isfinite(full).all() and float(tinv._softplus(
         params.r_s_raw)) != pytest.approx(0.7)
+
+
+# ---------------------------------------------------------------------------
+# The dense renderer's loss, the multiview loss, the blur and the CEM search.
+# ---------------------------------------------------------------------------
+
+
+def test_make_loss_jnp_matches_jax(config5):
+    """make_loss(renderer="jnp"), the default, against the JAX package's:
+    the config-5 loss from r_s 0.7 with the disk texels free, its value
+    within 1e-4 relative and its gradients with tests/test_kernel_scene.py's
+    rule (rtol 2e-2, atol 1e-3) for r_s and the camera, the texels within
+    2e-2 of their largest; fit(renderer="jnp") takes the same first step."""
+    j, t, target = config5
+    jp = jinv.init_params(j["camera"], 0.7, j["tex"], DISK)
+    jloss = jinv.make_loss(j["scene"], CFG, j["background"], j["tex"], DISK,
+                           target)
+    value, grads = jax.jit(jax.value_and_grad(jloss))(jp)
+    loss_fn = tinv.make_loss(t["scene"], t["cfg"], t["background"], t["tex"],
+                             DISK, target)
+    tp = tinv.init_params(t["camera"], 0.7, t["tex"], DISK)
+    leaves = [x.clone().requires_grad_(True) for x in tp]
+    tloss = loss_fn(tinv.InverseParams(*leaves))
+    tgrads = torch.autograd.grad(tloss, leaves)
+    np.testing.assert_allclose(tloss.item(), float(value), rtol=1e-4)
+    for name, a, b in zip(tinv.InverseParams._fields, tgrads, _np(grads)):
+        assert np.isfinite(a.numpy()).all(), name
+        atol = 2e-2 * np.abs(b).max() if name == "disk_texture" else 1e-3
+        np.testing.assert_allclose(a.numpy(), b, rtol=2e-2, atol=atol,
+                                   err_msg=name)
+    assert float(tgrads[0]) != 0 and (tgrads[-1] != 0).any()
+
+    _, history = tinv.fit(t["scene"], t["cfg"], t["background"], t["tex"],
+                          DISK, target, t["camera"], r_s0=0.7, n_steps=1,
+                          log_fn=lambda s: None)
+    np.testing.assert_allclose(history, [tloss.item()], rtol=1e-6)
+
+
+@pytest.mark.parametrize("sigma", [0.0, 2.0, 8.0])
+def test_gaussian_blur_matches_jax(sigma):
+    """gaussian_blur against the JAX package's within 1e-6 (numpy's
+    convolve(mode="same") on each axis).  A side shorter than the kernel
+    (2 int(3 sigma) + 1 taps) fails in both: the JAX package's reshape of
+    the longer convolution raises, the port raises ValueError."""
+    img = np.random.default_rng(3).random((60, 52, 4)).astype(np.float32)
+    ref = np.asarray(jinv.gaussian_blur(jnp.asarray(img), sigma))
+    got = tinv.gaussian_blur(torch.from_numpy(img), sigma).numpy()
+    assert got.shape == ref.shape == img.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+    if sigma > 0:
+        short = img[:, : 2 * int(3 * sigma)]
+        with pytest.raises(TypeError):
+            jinv.gaussian_blur(jnp.asarray(short), sigma)
+        with pytest.raises(ValueError, match="shorter than"):
+            tinv.gaussian_blur(torch.from_numpy(short), sigma)
+
+
+def _small_scene(pkg, **kw):
+    """A hollow disk and a sphere, untextured: the multiview loss's scene
+    (the JAX dense frame of a small scene compiles in seconds)."""
+    return pkg.build_scene([pkg.HollowDisk(material=pkg.Material()),
+                            pkg.Sphere(pos=(-7.0, -0.5, 7.0), radius=0.6,
+                                       material=pkg.Material())], [], **kw)
+
+
+def test_make_multiview_loss_matches_jax():
+    """make_multiview_loss (renderer="jnp") against the JAX package's on a
+    two-view rig: blur levels (2, 1) with weight maps, and pool levels
+    (1, 2) without; values within 1e-4 relative; a zero weight map gives 0.
+    Both JAX losses are one compile."""
+    cfg = st.RenderConfig(width=24, height=16, max_steps=20,
+                          percent_black=-1.0, checkpoint_every=10)
+    jsc = _small_scene(st)
+    cam = jconfigs.demo_camera()
+    bg = jconfigs.background_texture()
+    rng = np.random.default_rng(11)
+    targets = [rng.random((16, 24, 4)).astype(np.float32) for _ in range(2)]
+    offs = [np.zeros(3, np.float32), np.array([0.5, 0.0, 0.0], np.float32)]
+    weights = [rng.random((16, 24)).astype(np.float32) for _ in range(2)]
+    kws = [dict(blur_sigmas=(2.0, 1.0), view_weights=weights),
+           dict(pyramid=(1, 2))]
+    jp = jinv.init_params(cam, 0.8)
+
+    def jlosses(p):
+        return [jinv.make_multiview_loss(jsc, cfg, bg, None, None, targets,
+                                         offs, renderer="jnp", **kw)(p)
+                for kw in kws]
+
+    ref = [float(x) for x in jax.jit(jlosses)(jp)]
+    tsc = _small_scene(sp, device="cpu")
+    tcfg = convert.render_config(cfg)
+    tbg = convert.texture(_np(bg), device="cpu")
+    tp = tinv.init_params(convert.camera(_np(cam), device="cpu"), 0.8)
+    for kw, r in zip(kws, ref):
+        got = tinv.make_multiview_loss(tsc, tcfg, tbg, None, None, targets,
+                                       offs, renderer="jnp", **kw)(tp)
+        np.testing.assert_allclose(got.item(), r, rtol=1e-4)
+    zero = tinv.make_multiview_loss(
+        tsc, tcfg, tbg, None, None, targets, offs, renderer="jnp",
+        view_weights=[np.zeros((16, 24), np.float32)] * 2)
+    assert zero(tp).item() == 0.0
+    with pytest.raises(ValueError):
+        tinv.make_multiview_loss(tsc, tcfg, tbg, None, None, targets, offs,
+                                 view_weights=[])
+
+
+def test_pack_unpack_pose_round_trip(config5):
+    """pack_pose equals the JAX package's vector; unpack_pose puts it back
+    into the same parameters, leaving the texels alone."""
+    j, t, _ = config5
+    jp = jinv.init_params(j["camera"], 0.7, j["tex"], DISK)
+    tp = tinv.init_params(t["camera"], 0.7, t["tex"], DISK)
+    v = tinv.pack_pose(tp)
+    assert v.dtype == np.float32 and v.shape == (11,)
+    np.testing.assert_array_equal(v, jinv.pack_pose(jp))
+    back = tinv.unpack_pose(v + 1.0, tp)
+    np.testing.assert_array_equal(tinv.pack_pose(back), v + 1.0)
+    assert back.disk_texture is tp.disk_texture
+    np.testing.assert_array_equal(tinv.CEM_DEFAULT_STD, jinv.CEM_DEFAULT_STD)
+
+
+def test_cem_fit_pose_matches_jax():
+    """cem_fit_pose on the JAX suite's synthetic quadratic
+    (tests/test_inverse.py::test_cem_fit_pose_finds_known_minimum): the
+    same draws, so the history equals JAX's within 1e-5 relative and the
+    final pose within 1e-5; it finds the optimum."""
+    cam = jconfigs.demo_camera()
+    p_start = jinv.init_params(cam, 0.7)
+    p_true = jinv.init_params(
+        cam._replace(pos=jnp.asarray(cam.pos) + jnp.asarray(
+            [0.2, -0.1, 0.15], jnp.float32)), 1.0)
+    v_true = jinv.pack_pose(p_true)
+
+    def jloss(p):
+        v = jnp.concatenate([jnp.ravel(x) for x in (
+            p.r_s_raw[None], p.cam_pos, p.cam_fwd_raw, p.cam_right_raw,
+            p.fov[None])])
+        return jnp.sum((v - v_true) ** 2)
+
+    def tloss(p):
+        v = torch.cat([x.reshape(-1) for x in (
+            p.r_s_raw, p.cam_pos, p.cam_fwd_raw, p.cam_right_raw, p.fov)])
+        return torch.sum((v - torch.from_numpy(v_true)) ** 2)
+
+    kw = dict(n_iters=25, pop=48, elite=12, seed=1)
+    jfit, jinfo = jinv.cem_fit_pose(jloss, p_start, **kw)
+    tfit, tinfo = tinv.cem_fit_pose(
+        tloss, tinv.init_params(convert.camera(_np(cam), device="cpu"), 0.7),
+        **kw)
+    np.testing.assert_allclose(tinfo["history"], jinfo["history"], rtol=1e-5)
+    np.testing.assert_allclose(tinv.pack_pose(tfit), jinv.pack_pose(jfit),
+                               rtol=0, atol=1e-5)
+    assert tinfo["best_loss"] < 1e-3
+    np.testing.assert_allclose(tinv.pack_pose(tfit), v_true, atol=0.05)

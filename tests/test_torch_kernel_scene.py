@@ -194,6 +194,16 @@ def test_render_fast_rejects_unported_options(demo, option):
         assert torch.equal(tks.render_fast(*args, differentiable=True),
                            tks.render_fast(*args))
         return
+    if option == "test_ray":
+        # Ported since: the frame with the demo camera's (radial) test ray,
+        # against the dense renderer's.
+        from schwarzschild_tpu_torch import features
+
+        tr = features.calculate_test_ray(t["cam"], device="cpu")
+        img = tks.render_fast(*args, test_ray=tr)
+        dense = sp.render(*args, test_ray=tr)
+        assert ((img - dense).abs().amax(-1) < 2e-3).float().mean() >= 0.99
+        return
     with pytest.raises(NotImplementedError, match=option):
         tks.render_fast(*args, **{option: True})
 

@@ -1,8 +1,8 @@
-"""Time the march kernels of two or more checkouts of this repository in
-turns on one CUDA card.
+"""Time the march kernels (and the dense frame) of two or more checkouts
+of this repository in turns on one CUDA card.
 
     python3 tools/ab_march.py PATH_A PATH_B [PATH_C ...] [--pairs N]
-                              [--kernels scene,bwd,bh]
+                              [--kernels scene,bwd,bh,dense]
 
 N rounds (default 5); each round runs every checkout once, in the given
 order in even rounds and in reverse in odd ones (A, B, then B, A for two).
@@ -23,8 +23,12 @@ call (``*_ms``, host work included: CUDA-event medians of 20 calls):
     an SM where a checkout can say (march_bh_blocks_per_sm);
   * the host work of packing the demo scene's tables, which each
     march_scene call does before its launch (``pack_scene_tables_host_ms``,
-    host clock, the median of 20 after 3).
-``--kernels`` names the ones to time (default all: scene, bwd, bh; the
+    host clock, the median of 20 after 3);
+  * with ``dense``, where a checkout has the dense renderer
+    (``render.render``), its demo frame at 1280x720, 100 steps, forward
+    only: the CUDA-event median of 5 frames after 1 and the device time
+    of one frame (torch.profiler), as chip_smoke.py's dense phase.
+``--kernels`` names the ones to time (default scene, bwd, bh; the
 packing goes with scene).
 The rays, the timing and the card line are this repository's
 chip_smoke.py's, whichever checkout is timed.  It prints one JSON line per
@@ -49,7 +53,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 RUN = r"""
-import importlib.util, json, os, statistics, time, torch
+import importlib, importlib.util, json, os, statistics, time, torch
 spec = importlib.util.spec_from_file_location("chip_smoke",
                                               os.environ["AB_CHIP_SMOKE"])
 smoke = importlib.util.module_from_spec(spec)
@@ -62,7 +66,7 @@ built = _ext.build()
 res = {}
 dev = torch.device("cuda", 0)
 cfg = sp.RenderConfig(width=1280, height=720, percent_black=-1.0)
-if "scene" in only or "bwd" in only:
+if "scene" in only or "bwd" in only or "dense" in only:
     cam = configs.demo_camera(device=dev)
     sc = configs.demo_scene(device=dev)
     tex = configs.demo_texture_stack(device=dev)
@@ -113,6 +117,18 @@ if "bh" in only:
     lib = _ext.library()
     if hasattr(lib, "march_bh_blocks_per_sm"):
         res["march_bh_blocks_per_sm"] = lib.march_bh_blocks_per_sm(0)
+if "dense" in only:
+    render = importlib.import_module("schwarzschild_tpu_torch.render")
+    if hasattr(render, "render"):
+        bg = configs.background_texture(device=dev)
+
+        def dense():
+            with torch.no_grad():
+                return render.render(sc, cam, cfg, bg, tex, 1.0)
+
+        res["dense_1280x720_ms"] = smoke.cuda_ms(dense, warmup=1, reps=5)
+        res["dense_1280x720_device_ms"] = smoke.profile_device(
+            dense, host=False)["device_ms"]
 print(json.dumps(res))
 """
 
