@@ -76,7 +76,26 @@ Phases, one printed line each (any failure raises, so the exit code is not
      renderer="fast", blur_sigmas=(8, 2)) with the disk masked out by
      view_weights, 3 iterations of cem_fit_pose(pop=64, elite=16): time a
      iteration, march_scene launches an iteration (pop x views), the best
-     loss of each.
+     loss of each;
+ 13. trilinear: texture_filter="trilinear" through render_fast (demo,
+     1280x720, 4 slots) and render_horizon_sky (config 2, 512x512) with
+     the counters reset around them (one march launch a frame), their times
+     beside the bilinear frames', the mip pyramid's bytes and the frames'
+     peak memory, the same frame from textures that carry their mips, small
+     frames on the card against the CPU's, render_fast against the dense
+     render on the card, one 720p trilinear gradient frame (r_s, cam.pos,
+     the sky's and the stack's texels: finite, one adjoint launch) and its
+     gradients on the card against the CPU's at 64x36;
+ 14. prng: noise_mode="prng" at 1280x720, percent_black 0.75: the field on
+     the card equals the CPU's bit for bit and the first 16 values and the
+     SHA-256 recorded from jax.random.uniform; the march's active mask is
+     the field's (its t_end plane too); render_fast skips exactly those
+     pixels, one launch;
+ 15. oracle: config 2 at 512x512 against the native float64 oracle,
+     render_horizon_sky and render_fast, by benchmarks/parity_r05.py's
+     method (tools/parity_oracle.py runs configs 2 and 3 at full size);
+ 16. profiling: profiling.device_time of a march_bh call at 512x512 beside
+     its cuda_ms and device_ms.
 Then one JSON line of per-kernel results, the card line again, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -97,11 +116,17 @@ scene.py's rules); twin against kernel gradients: rtol 2e-2, atol 1e-3
 for r_s, cam.pos and every background texel.
 A flyby frame on the card must match the CPU's within 1 uint8 level on at
 least 99.5% of pixels (tests/test_aux.py's rule for the JAX animation module).
+Trilinear render_fast against the dense render: at least 94% of pixels
+within 2e-3 (tests/test_kernel_scene.py::test_trilinear_parity: the two
+renderers take their LOD from different neighbours).  The oracle phase
+fails on any non-boundary pixel more than a display count off that no
+ulp-scale perturbation moves.
 A kernel's time (``ms``) is its wrapper's whole call, host work included,
 and the other times are CUDA-event medians of 10 runs after 2 warm-up
 runs (plain versions: 3 after 1); ``device_ms`` is the kernel alone, its
 device time from torch.profiler, the median of 20 launches after 3 warm-up
-calls, or null where the profiler lost the launches.
+calls, or null (with a device_ms line saying why) where the profiler did
+not see as many launches as the wrapper's counter made.
 
 Bounds: the least time an H100 SXM could take for a kernel's work, the
 larger of its bytes (each input read once, each output written once) over
@@ -196,26 +221,46 @@ def device_ms(fn, name, reps=20, tries=3):
     """Median device time (ms) of the kernel whose name holds ``name``, one
     launch per call of ``fn``, from torch.profiler: the kernel alone,
     without the wrapper's host work (which cuda_ms counts where the card
-    waits for it).  The profiler can lose a run's kernel events, some or
-    all: a run that shows fewer than half the launches is taken again, and
-    after ``tries`` such runs the result is None."""
+    waits for it).  A run counts only if the profiler saw as many of the
+    kernel's launches as its wrapper's counter made in that run (the
+    profiler can lose some, or all); after ``tries`` runs that do not, the
+    result is None and a ``device_ms`` line says why."""
     import torch
 
+    counter = wrapper_of(name)
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(tries):
+        before = counter.launches
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        launched = counter.launches - before
         times = [e.device_time_total for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and name in e.name]
-        if 2 * len(times) >= reps:
+        if launched and len(times) == launched:
             return statistics.median(times) / 1e3
+        seen.append([len(times), launched])
+    log("device_ms", kernel=name, value=None,
+        reason="profiler launches != wrapper launches in every run",
+        profiler_vs_wrapper=seen)
     return None
+
+
+def wrapper_of(kernel_name):
+    """The wrapper function (with its ``launches`` counter) that launches
+    the CUDA kernel ``kernel_name``."""
+    from schwarzschild_tpu_torch import kernel, kernel_scene
+
+    return {"march_bh_kernel": kernel.march_bh,
+            "march_scene_kernel": kernel_scene.march_scene,
+            "march_scene_bwd_kernel": kernel_scene.march_scene_bwd}[
+                kernel_name]
 
 
 def rays(cam, W, H, dev):
@@ -907,6 +952,290 @@ def cem_phase(c5, reset_launches, read_launches, pop=64, n_iters=3,
             f"CEM losses {info['history']}")
 
 
+# jax.random.uniform(jax.random.key(0), (720, 1280)), recorded from JAX 0.9.0
+# on the CPU (the card's machine has no JAX): the float32 bits of its first
+# 16 values and the SHA-256 of its float32 bytes, row-major.
+PRNG_FIRST16_BITS = [
+    1064475214, 1064993846, 1051337244, 1055913296, 1058137146, 1042905504,
+    1050595796, 1060143564, 1061104664, 1043275376, 1065107494, 1020206464,
+    1059314120, 1058016386, 1063662304, 1064254938]
+PRNG_SHA256 = ("741bfad24330ed0b5e543fafd3bd71fc"
+               "64ebe304435811230ab05361f9d35409")
+
+
+def trilinear_phase(sc, cam, bg, tex, c2, reset_launches, read_launches,
+                    size=(1280, 720), small=(96, 54), grad_small=(64, 36)):
+    """Phase 13: texture_filter="trilinear" through render_fast (demo,
+    4 slots) and render_horizon_sky (config 2), one launch of each march a
+    frame, timed beside the bilinear frames; the mip pyramid's memory; small
+    frames on the card against the CPU's; render_fast against the dense
+    render on the card; one trilinear gradient frame, and its gradients on
+    the card against the CPU's at a small size."""
+    import dataclasses
+
+    import torch
+
+    import schwarzschild_tpu_torch as sp
+    from schwarzschild_tpu_torch import configs
+
+    dev = bg.data.device
+    cpu = torch.device("cpu")
+    cfg_b = sp.RenderConfig(width=size[0], height=size[1],
+                            percent_black=-1.0)
+    cfg_t = dataclasses.replace(cfg_b, texture_filter="trilinear")
+    sky_b = c2["cfg"]
+    sky_t = dataclasses.replace(sky_b, texture_filter="trilinear")
+    cam2, bg2 = c2["camera"], c2["background"]
+
+    (bg_m, tex_m), mip_peak = peak_bytes(
+        lambda: (sp.with_mips(bg), sp.stack_with_mips(tex)))
+    mip_bytes = sum(m.numel() * m.element_size()
+                    for m in bg_m.mips + tex_m.mips)
+    base_bytes = sum(t.numel() * t.element_size()
+                     for t in (bg.data, tex.data))
+
+    def fast(cfg, b=bg, t=tex):
+        return sp.render_fast(sc, cam, cfg, b, t, 1.0, n_slots=4)
+
+    reset_launches()
+    img, tri_peak = peak_bytes(lambda: fast(cfg_t))
+    sky = sp.render_horizon_sky(cam2, sky_t, bg2, 1.0)
+    launches = read_launches()
+    require(img.shape == (size[1], size[0], 4)
+            and bool(torch.isfinite(img).all()),
+            "trilinear render_fast frame not finite or misshapen")
+    require(bool(torch.isfinite(sky).all()),
+            "trilinear render_horizon_sky frame not finite")
+    require(launches["march_scene"] == 1 and launches["march_bh"] == 1,
+            f"trilinear frames launched {launches}")
+    _, bil_peak = peak_bytes(lambda: fast(cfg_b))
+    same_prebuilt = bool(torch.equal(fast(cfg_t, bg_m, tex_m), img))
+    differs = ((fast(cfg_b) - img).abs() > 1e-3).float().mean().item()
+    times = dict(
+        render_fast_trilinear_ms=cuda_ms(lambda: fast(cfg_t)),
+        render_fast_bilinear_ms=cuda_ms(lambda: fast(cfg_b)),
+        render_fast_trilinear_prebuilt_mips_ms=cuda_ms(
+            lambda: fast(cfg_t, bg_m, tex_m)),
+        render_horizon_sky_trilinear_ms=cuda_ms(
+            lambda: sp.render_horizon_sky(cam2, sky_t, bg2, 1.0)),
+        render_horizon_sky_bilinear_ms=cuda_ms(
+            lambda: sp.render_horizon_sky(cam2, sky_b, bg2, 1.0)))
+
+    small_t = sp.RenderConfig(width=small[0], height=small[1],
+                              percent_black=-1.0, texture_filter="trilinear")
+    sky_small = sp.RenderConfig(width=128, height=128, percent_black=-1.0,
+                                texture_filter="trilinear")
+    host = dict(sc=configs.demo_scene(device=cpu),
+                cam=configs.demo_camera(device=cpu),
+                bg=configs.background_texture(device=cpu),
+                tex=configs.demo_texture_stack(device=cpu))
+    card_small = sp.render_fast(sc, cam, small_t, bg, tex, 1.0)
+    share_fast = within(card_small, sp.render_fast(
+        host["sc"], host["cam"], small_t, host["bg"], host["tex"], 1.0))
+    share_sky = within(
+        sp.render_horizon_sky(cam2, sky_small, bg2, 1.0),
+        sp.render_horizon_sky(host["cam"], sky_small, host["bg"], 1.0))
+    with torch.no_grad():
+        dense_small = sp.render(sc, cam, small_t, bg, tex, 1.0)
+    share_dense = within(card_small, dense_small)
+
+    def grads(device, cfg, w, scene, camera, back, stack):
+        pos = camera.pos.clone().requires_grad_(True)
+        r_s = torch.tensor(1.0, device=device, requires_grad=True)
+        bg_data = back.data.clone().requires_grad_(True)
+        tex_data = stack.data.clone().requires_grad_(True)
+        out = sp.render_fast(scene, camera._replace(pos=pos), cfg,
+                             sp.Texture(bg_data),
+                             stack._replace(data=tex_data), r_s,
+                             overflow="ignore", differentiable=True)
+        return torch.autograd.grad((out * w).sum(),
+                                   [r_s, pos, bg_data, tex_data])
+
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    w = torch.rand((size[1], size[0], 4), generator=gen).to(dev)
+    reset_launches()
+    g_full, grad_peak = peak_bytes(
+        lambda: grads(dev, cfg_t, w, sc, cam, bg, tex))
+    grad_launches = read_launches()
+    require(all(bool(torch.isfinite(g).all()) for g in g_full),
+            "non-finite trilinear gradient")
+    require(grad_launches["march_scene"] == 1
+            and grad_launches["march_scene_bwd"] == 1,
+            f"trilinear gradient frame launched {grad_launches}")
+    require(bool((g_full[3] != 0).any()),
+            "no texel gradient through the mips")
+    grad_ms = cuda_ms(lambda: grads(dev, cfg_t, w, sc, cam, bg, tex),
+                      warmup=1, reps=5)
+    grad_profile = profile_device(
+        lambda: grads(dev, cfg_t, w, sc, cam, bg, tex))
+    small_g = sp.RenderConfig(width=grad_small[0], height=grad_small[1],
+                              percent_black=-1.0, texture_filter="trilinear")
+    ws = torch.rand((grad_small[1], grad_small[0], 4), generator=gen)
+    gg = grads(dev, small_g, ws.to(dev), sc, cam, bg, tex)
+    gc = grads(cpu, small_g, ws, host["sc"], host["cam"], host["bg"],
+               host["tex"])
+    close = {name: grads_close(a, b) for name, a, b in zip(
+        ("r_s", "pos", "background", "texels"), gg, gc)}
+    log("trilinear", shape=[size[1], size[0]], launches=launches,
+        gradient_launches=grad_launches, **times,
+        gradient_frame_fwd_bwd_ms=grad_ms,
+        profiled_gradient_frame=grad_profile,
+        mip_pyramid=dict(bytes=mip_bytes, base_texture_bytes=base_bytes,
+                         build_peak_bytes=mip_peak,
+                         frame_peak_bytes_trilinear=tri_peak,
+                         frame_peak_bytes_bilinear=bil_peak,
+                         gradient_frame_peak_bytes=grad_peak),
+        prebuilt_mips_same_frame=same_prebuilt,
+        share_of_pixels_changed_vs_bilinear=differs,
+        card_vs_cpu=dict(render_fast=share_fast, render_horizon_sky=share_sky,
+                         sizes=[list(small[::-1]), [128, 128]]),
+        render_fast_vs_dense_on_card=share_dense,
+        gradients_card_vs_cpu=close, grad_r_s=g_full[0].item())
+    require(same_prebuilt, "a texture's own mips change the frame")
+    require(differs > 0.0, "trilinear frame equals the bilinear one")
+    require(share_fast >= 0.995 and share_sky >= 0.995,
+            f"trilinear frames vs CPU: {share_fast}, {share_sky}")
+    # tests/test_kernel_scene.py::test_trilinear_parity's rule for the two
+    # renderers: their LOD neighbours differ (the dense renderer shades a
+    # step's lanes, render_fast a slot's).
+    require(share_dense >= 0.94,
+            f"trilinear render_fast vs dense: {share_dense}")
+    require(all(close.values()), f"trilinear gradients vs CPU: {close}")
+
+
+def prng_phase(sc, cam, bg, tex, reset_launches, read_launches,
+               size=(1280, 720), first16=PRNG_FIRST16_BITS,
+               sha256=PRNG_SHA256):
+    """Phase 14: noise_mode="prng" (jax.random's threefry field) at
+    percent_black 0.75: the field on the card equals the CPU's bit for bit
+    and JAX's recorded values; the march's active mask is the field's; the
+    frame skips exactly those pixels."""
+    import hashlib
+
+    import torch
+
+    import schwarzschild_tpu_torch as sp
+    from schwarzschild_tpu_torch import camera as cam_mod
+    from schwarzschild_tpu_torch import kernel, kernel_scene, noise
+
+    dev = bg.data.device
+    cfg = sp.RenderConfig(width=size[0], height=size[1], percent_black=0.75,
+                          noise_mode="prng")
+    u, v = cam_mod.pixel_grid(size[0], size[1], device=dev)
+    field = noise.noise_field(cfg, u, v)
+    field_cpu = noise.noise_field(cfg, u.cpu(), v.cpu())
+    bits = field.cpu().view(torch.int32)
+    equal_cpu = bool(torch.equal(bits, field_cpu.view(torch.int32)))
+    got16 = (bits.flatten()[:16].to(torch.int64) & 0xFFFFFFFF).tolist()
+    digest = hashlib.sha256(field_cpu.numpy().tobytes()).hexdigest()
+
+    px = kernel.pixel_setup(cam, cfg, dev)
+    mask_is_field = bool(torch.equal(
+        px["march_px"], ~px["flat_px"] & ~(field <= cfg.percent_black)))
+    ev = kernel_scene.march_scene(px["origin"], px["direction"],
+                                  px["march_px"], 1.0, sc, cfg, 4, tex,
+                                  events=True)[5]
+    kernel_mask = bool(torch.equal(ev["t_end"] >= 0, px["march_px"]))
+    reset_launches()
+    img = sp.render_fast(sc, cam, cfg, bg, tex, 1.0, n_slots=4)
+    launches = read_launches()
+    skipped = px["noise_skip"]
+    skips_exact = bool((img[skipped] == 0).all()) and bool(
+        (img[~skipped].abs().amax(-1) > 0).float().mean() > 0.99)
+    frame_ms = cuda_ms(lambda: sp.render_fast(sc, cam, cfg, bg, tex, 1.0,
+                                              n_slots=4))
+    log("prng", shape=[size[1], size[0]], percent_black=0.75,
+        field_equal_cpu_bits=equal_cpu, first16_equal_jax=got16 == first16,
+        sha256_equal_jax=digest == sha256, sha256=digest,
+        active_mask_is_field=mask_is_field,
+        kernel_marched_the_mask=kernel_mask, skipped_share=skipped.float()
+        .mean().item(), skipped_pixels_black=skips_exact, launches=launches,
+        render_fast_ms=frame_ms)
+    require(equal_cpu, "prng field on the card differs from the CPU's")
+    require(got16 == first16 and digest == sha256,
+            "prng field differs from jax.random.uniform's")
+    require(mask_is_field and kernel_mask,
+            "the march's active mask is not the prng field's")
+    require(launches["march_scene"] == 1, f"prng frame launched {launches}")
+    require(skips_exact and bool(torch.isfinite(img).all()),
+            "prng frame: skipped pixels not black, or not finite")
+
+
+def oracle_phase(c2, size=512):
+    """Phase 15: config 2 at size x size against the native float64 oracle
+    (schwarzschild_tpu_torch.oracle), render_horizon_sky and render_fast on
+    the card, by benchmarks/parity_r05.py's method: disagreements classified
+    by distance to the oracle image's discontinuities, every pixel off by
+    more than a display count at r0 probed for decision marginality; the
+    gate is no non-marginal offender.  Config 3 at 1024 x 1024 is
+    tools/parity_oracle.py's."""
+    import dataclasses
+
+    import torch
+
+    import schwarzschild_tpu_torch as sp
+    from schwarzschild_tpu_torch import oracle
+
+    cam, bg = c2["camera"], c2["background"]
+    cfg = dataclasses.replace(c2["cfg"], width=size, height=size,
+                              percent_black=-1.0)
+    t0 = time.perf_counter()
+    osc = oracle.OracleScene.from_scene(c2["scene"], bg)
+    gold = oracle.render_image(osc, cam.pos, cam.axes, cam.fov, size, size,
+                               max_steps=cfg.max_steps).astype("float32")
+    oracle_s = time.perf_counter() - t0
+
+    def numpy_of(f):
+        def run(camera, r_s):
+            with torch.no_grad():
+                return f(camera, torch.tensor(r_s, device=bg.data.device)
+                         ).cpu().numpy()
+        return run
+
+    frames = {
+        "render_horizon_sky": numpy_of(
+            lambda c, r: sp.render_horizon_sky(c, cfg, bg, r)),
+        "render_fast": numpy_of(
+            lambda c, r: sp.render_fast(c2["scene"], c, cfg, bg, None, r,
+                                        overflow="ignore"))}
+    results = {}
+    for name, render in frames.items():
+        res, _ = oracle.parity(gold, render, cam)
+        results[name] = {k: v for k, v in res.items()
+                         if k != "offender_probe"}
+        results[name]["offenders"] = res["offender_probe"]
+    log("oracle", config="config2", shape=[size, size],
+        oracle_seconds=oracle_s, results=results)
+    for name, res in results.items():
+        require(res["nonboundary_gt_display_r0_nonmarginal"] == 0,
+                f"{name}: a non-marginal offender against the oracle")
+        require(res["finite"], f"{name}: frame not finite")
+
+
+def profiling_phase(c2):
+    """Phase 16: profiling.device_time (the slope between chains of 2 and
+    8 data-dependent calls, CUDA events) of a march_bh thunk on config 2's
+    512 x 512 rays, beside cuda_ms (the wrapper's call) and device_ms (the
+    kernel, torch.profiler) of the same call."""
+    from schwarzschild_tpu_torch import kernel, profiling
+
+    cfg = c2["cfg"]
+    dev = c2["background"].data.device
+    o, d, act = rays(c2["camera"], cfg.width, cfg.height, dev)
+
+    def thunk(r):
+        return kernel.march_bh(o * r, d, act, 1.0, cfg)[0][0, 0, 0]
+
+    slope_ms = profiling.device_time(thunk, chains=(2, 8), trials=5,
+                                     device=dev) * 1e3
+    call_ms = cuda_ms(lambda: kernel.march_bh(o, d, act, 1.0, cfg))
+    kernel_ms = device_ms(lambda: kernel.march_bh(o, d, act, 1.0, cfg),
+                          "march_bh_kernel")
+    log("profiling", shape=[cfg.height, cfg.width],
+        device_time_slope_ms=slope_ms, cuda_ms=call_ms, device_ms=kernel_ms)
+    require(slope_ms > 0.0, f"device_time slope {slope_ms} ms")
+
+
 def main() -> int:
     import torch
 
@@ -1285,6 +1614,12 @@ def main() -> int:
     dense_grad_phase(c5, target, c2, reset_launches, read_launches)
     tubes_phase(sc, cam, bg, tex, reset_launches, read_launches)
     cem_phase(c5, reset_launches, read_launches)
+
+    # 13-16. trilinear frames, prng noise, the oracle, profiling
+    trilinear_phase(sc, cam, bg, tex, c2, reset_launches, read_launches)
+    prng_phase(sc, cam, bg, tex, reset_launches, read_launches)
+    oracle_phase(c2)
+    profiling_phase(c2)
 
     src = "schwarzschild_tpu_torch/csrc/march.cu"
     kernels = [

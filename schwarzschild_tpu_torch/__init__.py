@@ -30,7 +30,18 @@ from .scene import (
 from .intersect import Hit, TestRay, intersect_scene
 from .render import encode_png, render, save_png, to_uint8
 from .shading import get_background, shade
-from .textures import Texture, TextureStack, from_array, load_texture, stack_textures
+from .textures import (
+    Texture,
+    TextureStack,
+    build_mips,
+    from_array,
+    load_texture,
+    load_texture_array,
+    solid_color_texture,
+    stack_textures,
+    stack_with_mips,
+    with_mips,
+)
 from .kernel import render_horizon_sky
 from .kernel_scene import render_fast, render_fast_auto
 from .animation import render_trajectory, write_video

@@ -40,8 +40,7 @@ class RenderConfig:
     u_f: float = 0.01  # black_hole.frag:22
     # Stochastic pixel skip (frag:39,879-881); < 0 disables skipping.
     percent_black: float = 0.75  # main.cpp:66
-    # "hash" | "tile" | "glsl" | "none"; "prng" (threefry) is not available
-    # in this package (noise.noise_field raises).
+    # "hash" | "tile" | "glsl" | "prng" (jax.random's threefry field) | "none"
     noise_mode: str = "hash"
     noise_seed: int = 0
     noise_tile: tuple = (16, 128)
@@ -53,8 +52,9 @@ class RenderConfig:
     checkpoint_every: int = 10
     # > 0 smooths the shadow silhouette (see kernel_scene.render_fast).
     horizon_softness: float = 0.0
-    # Only "bilinear" (level-0 GL_LINEAR, the reference's behaviour) is
-    # implemented here.
+    # "bilinear" (level-0 GL_LINEAR, the reference's behaviour) or
+    # "trilinear" (mips at a screen-space LOD; the renderers build the mips
+    # of a texture that carries none).
     texture_filter: str = "bilinear"
     test_ray_capacity: int = 101
 

@@ -53,21 +53,20 @@ def camera(src, device=None) -> Camera:
     return _fields(Camera, src, device)
 
 
-def _no_mips(src):
-    if len(getattr(src, "mips", ())):
-        raise NotImplementedError(
-            "mip levels (trilinear filtering) are not available in "
-            "schwarzschild_tpu_torch")
+def _with_mip_levels(cls, src, device):
+    """A texture or stack: its arrays, and its mip levels (a tuple)."""
+    arrays = cls(*(_tensor(getattr(src, f), device)
+                   for f in cls._fields if f != "mips"))
+    return arrays._replace(mips=tuple(
+        _tensor(m, device) for m in getattr(src, "mips", ())))
 
 
 def texture(src, device=None) -> Texture:
-    _no_mips(src)
-    return _fields(Texture, src, device)
+    return _with_mip_levels(Texture, src, device)
 
 
 def texture_stack(src, device=None) -> TextureStack:
-    _no_mips(src)
-    return _fields(TextureStack, src, device)
+    return _with_mip_levels(TextureStack, src, device)
 
 
 def render_config(src) -> RenderConfig:

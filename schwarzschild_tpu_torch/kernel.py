@@ -27,7 +27,7 @@ from . import physics
 from .config import FLAT, HALF_HEIGHT, HALF_WIDTH, RenderConfig
 from .noise import noise_field
 from .shading import CROSSHAIR_COLOR, crosshair_mask, get_background
-from .textures import Texture
+from .textures import Texture, ensure_mips
 
 STATUS_MARCHING = 0.0
 STATUS_CAPTURED = 1.0
@@ -348,10 +348,8 @@ def pixel_setup(cam, cfg: RenderConfig, device, rows=None):
     march_px and normal_vec0.  ``rows=(r0, r1)`` keeps image rows [r0, r1)
     of the full frame; the noise field is built at full size and sliced,
     so every value equals the full frame's."""
-    if cfg.texture_filter != "bilinear":
-        raise NotImplementedError(
-            f"texture_filter={cfg.texture_filter!r}: only 'bilinear' is "
-            "available in schwarzschild_tpu_torch")
+    if cfg.texture_filter not in ("bilinear", "trilinear"):
+        raise ValueError(f"unknown texture_filter {cfg.texture_filter!r}")
     H, W = cfg.height, cfg.width
     u_full, v_full = cam_mod.pixel_grid(W, H, device=device)
     r0, r1 = (0, H) if rows is None else rows
@@ -424,11 +422,15 @@ def render_horizon_sky(cam, cfg: RenderConfig, background: Texture, r_s=1.0,
     :func:`march_bh`, then one background gather.  (H, W, 4) RGBA on the
     device of ``background``.  ``differentiable=True`` marches through
     :func:`march_bh_diff`, so gradients reach ``r_s``, the camera's tensors
-    and the background texels."""
+    and the background texels.  ``cfg.texture_filter="trilinear"`` samples
+    the sky's mips, built here when ``background`` carries none."""
     reject_unported(mesh=mesh)
     dev = background.data.device
     r_s = _f32(r_s, dev)
     px = pixel_setup(cam, cfg, dev)
+    trilinear = cfg.texture_filter == "trilinear"
+    if trilinear:
+        background, _ = ensure_mips(background)
     origin, direction = px["origin"], px["direction"]
     flat_px, noise_skip = px["flat_px"], px["noise_skip"]
 
@@ -444,7 +446,7 @@ def render_horizon_sky(cam, cfg: RenderConfig, background: Texture, r_s=1.0,
 
     captured = torch.where(flat_px, flat_bh, status == STATUS_CAPTURED)
     use_dir = torch.where(flat_px[..., None], direction, final_dir)
-    bg = get_background(background, use_dir)
+    bg = get_background(background, use_dir, trilinear=trilinear)
     black = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
     zero = torch.zeros(4, device=dev)
 

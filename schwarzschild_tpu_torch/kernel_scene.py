@@ -67,7 +67,7 @@ from .kernel import (  # noqa: F401  (statuses and noise_field are public here t
 )
 from .scene import OBJECT_TYPE_SPECIAL, Scene
 from .shading import get_background, shade
-from .textures import Texture, TextureStack
+from .textures import Texture, TextureStack, ensure_mips
 
 STATUS_FLAT_FINISH = 3.0
 STATUS_HIT_OPAQUE = 4.0
@@ -1277,9 +1277,12 @@ def render_fast(
     the march stop at provably opaque primitives.  ``differentiable=True``
     marches through :func:`march_scene_diff` (the adjoint kernel as its
     backward) and composes with torch autograd, so gradients reach ``r_s``,
-    the camera's tensors, the background texels and the texture stack; a
-    stack that requires grad gives the march no opaque stop, as a traced
-    stack does in the JAX package.  ``test_ray`` (a
+    the camera's tensors, the background texels and the texture stack
+    (through its mips, which a trilinear frame builds from it); a stack
+    that requires grad gives the march no opaque stop, as a traced stack
+    does in the JAX package.  ``cfg.texture_filter="trilinear"`` samples
+    the textures' mips (built here where a texture carries none) at a
+    screen-space LOD in every pass.  ``test_ray`` (a
     :class:`intersect.TestRay`) draws the debug tubes: they ride the march
     kernel's cylinder table and the composition's re-intersection.  The
     remaining keywords name options of the JAX package that this package
@@ -1294,6 +1297,9 @@ def render_fast(
     origin, direction = px["origin"], px["direction"]
     flat_px, march_px = px["flat_px"], px["march_px"]
     batch = flat_px.shape
+    trilinear = cfg.texture_filter == "trilinear"
+    if trilinear:
+        background, tex = ensure_mips(background, tex)
 
     if cfg.raytrace_type != FLAT:
         march = march_scene_diff if differentiable else march_scene
@@ -1349,7 +1355,7 @@ def render_fast(
         window = torch.where(fold, -1.0,
                              torch.where(rec, slen * 1.0001 + 1e-5, 1.0))
         hit = intersect_scene(safe_start, safe_dir, window, sc, r_s, test_ray)
-        rgba = shade(hit, -safe_dir, sc, tex)
+        rgba = shade(hit, -safe_dir, sc, tex, trilinear=trilinear)
         take = eff & open_ & hit.valid
         opaque_take = take & (rgba[..., 3] == 1.0)
         color = color + torch.where(take[..., None], rgba, 0.0)
@@ -1369,7 +1375,7 @@ def render_fast(
     # Sky for every lane still open, except captured rays: a capture is
     # opaque black even when its slot was dropped by overflow.
     march_bg = open_ & bg_hard
-    bg = get_background(background, use_dir)
+    bg = get_background(background, use_dir, trilinear=trilinear)
     if soft:
         captured_m = captured_shaded | (
             march_px & (status == STATUS_CAPTURED) & open_)

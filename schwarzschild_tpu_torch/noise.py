@@ -2,9 +2,11 @@
 the noise functions of ``schwarzschild_tpu.render``).
 
 The integer hashes are bit-equal to the JAX package's uint32 lowbias32
-pipeline.  torch has no full uint32 arithmetic, so the hash runs in int64
-with every product reduced mod 2^32; a product of two 32-bit values would
-overflow int64, so :func:`_mul32` splits the constant into 16-bit halves.
+pipeline, and :func:`prng_uniform` to ``jax.random.uniform`` of a
+threefry key.  torch has no full uint32 arithmetic, so the hashes run in
+int64 with every sum and product reduced mod 2^32; a product of two 32-bit
+values would overflow int64, so :func:`_mul32` splits the constant into
+16-bit halves.
 """
 
 from __future__ import annotations
@@ -68,6 +70,49 @@ def tile_hash_rand(width, height, seed=0, tile=(8, 128), device=None):
     return _lowbias32(h)
 
 
+# Threefry-2x32 (Salmon et al. 2011), 20 rounds, as jax._src.prng's
+# _threefry2x32_lowering: rotations, the key-schedule parity constant.
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_THREEFRY_PARITY = 0x1BD11BDA
+
+
+def _rotl32(x, d: int):
+    return ((x << d) & _M32) | (x >> (32 - d))
+
+
+def threefry2x32(k1: int, k2: int, x1, x2):
+    """The Threefry-2x32 block function of the key (k1, k2) on the counter
+    pairs (x1, x2), int64 tensors holding uint32 values; returns the two
+    output words likewise."""
+    ks = (k1 & _M32, k2 & _M32, (k1 ^ k2 ^ _THREEFRY_PARITY) & _M32)
+    x = [(x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32]
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & _M32
+            x[1] = _rotl32(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & _M32
+        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & _M32
+    return x[0], x[1]
+
+
+def prng_uniform(seed: int, shape, device=None):
+    """``jax.random.uniform(jax.random.key(seed), shape)``, bit for bit:
+    the key is (seed >> 32, seed & 0xFFFFFFFF) (prng.threefry_seed); each
+    element's counter is its flat index as (hi, lo) words (iota_2x32_shape),
+    its 32 bits the xor of the two output words (the partitionable
+    layout, a function of the index alone, so any strip or tile of the
+    field equals that part of the whole); the float keeps 23 of them as a
+    mantissa in [1, 2), minus 1."""
+    device = resolve_device(device)
+    n = 1
+    for d in shape:
+        n *= int(d)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(seed >> 32, seed, idx >> 32, idx & _M32)
+    mant = ((b1 ^ b2) >> 9) | 0x3F800000
+    return (mant.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)
+
+
 def noise_field(cfg: RenderConfig, u_ndc, v_ndc):
     """The per-pixel random field behind the noise-skip mask
     (frag:879-881) for cfg's ``noise_mode``; zeros when noise is off."""
@@ -84,8 +129,7 @@ def noise_field(cfg: RenderConfig, u_ndc, v_ndc):
             return tile_hash_rand(cfg.width, cfg.height, cfg.noise_seed,
                                   cfg.noise_tile, device=dev)
         if cfg.noise_mode == "prng":
-            raise ValueError(
-                "noise_mode='prng' draws from JAX's threefry generator, whose "
-                "bits torch cannot reproduce; use 'hash', 'tile' or 'glsl'")
+            return prng_uniform(cfg.noise_seed, (cfg.height, cfg.width),
+                                device=dev)
         raise ValueError(f"unknown noise_mode {cfg.noise_mode!r}")
     return torch.zeros(u_ndc.shape, device=dev)

@@ -36,7 +36,7 @@ from .kernel import (_far_field, _init_march, _rk4_segment, march_scalars,
                      pixel_setup)
 from .scene import OBJECT_TYPE_SPECIAL, Scene
 from .shading import get_background, shade
-from .textures import Texture, TextureStack
+from .textures import Texture, TextureStack, ensure_mips
 
 class MarchState(NamedTuple):
     active: torch.Tensor  # (...,) bool: still marching
@@ -109,7 +109,8 @@ def _march_step(state: MarchState, i: int, sc: Scene, cfg: RenderConfig,
 
     # Segment intersection and shading (frag:930-932).
     hit = intersect_scene(state.pos, new_dir, seg_len, sc, r_s, test_ray)
-    rgba = shade(hit, -new_dir, sc, tex)
+    rgba = shade(hit, -new_dir, sc, tex,
+                 trilinear=cfg.texture_filter == "trilinear")
     color = state.color + torch.where((hit.valid & active)[..., None], rgba,
                                       0.0)
     opaque = active & hit.valid & (rgba[..., 3] == 1.0)
@@ -150,9 +151,14 @@ def render(sc: Scene, cam, cfg: RenderConfig, background: Texture,
     peak memory of a large frame.  ``test_ray`` draws the debug tubes.
     ``cfg.checkpoint_every`` (dividing ``max_steps``) runs the march in
     chunks under ``torch.utils.checkpoint``, which saves only each
-    chunk's input state for the backward; the image is the same."""
-    if cfg.texture_filter not in ("bilinear", "trilinear"):
-        raise ValueError(f"unknown texture_filter {cfg.texture_filter!r}")
+    chunk's input state for the backward; the image is the same.
+
+    ``cfg.texture_filter="trilinear"`` samples the textures' mips (built
+    here where a texture carries none) at a screen-space LOD over the
+    frame's grid; with ``rows=`` that grid is the strip, so the LOD of a
+    strip's first and last rows takes the strip's wrapped neighbours
+    (``torch.roll``), as the JAX package's does, and can differ from the
+    whole frame's there."""
     dev = background.data.device
     r_s = torch.as_tensor(r_s, dtype=torch.float32, device=dev)
     state, ctx = _prepare(sc, cam, cfg, background, tex, r_s, rows=rows)
@@ -163,8 +169,11 @@ def render(sc: Scene, cam, cfg: RenderConfig, background: Texture,
 
 def _prepare(sc, cam, cfg, background, tex, r_s, rows=None):
     """Rays, dispatch masks and the initial march state (frag:850-887),
-    with kernel.py's pixel setup and orbital-plane init."""
+    with kernel.py's pixel setup and orbital-plane init; the mips of a
+    trilinear frame."""
     px = pixel_setup(cam, cfg, background.data.device, rows=rows)
+    if cfg.texture_filter == "trilinear":
+        background, tex = ensure_mips(background, tex)
     origin, direction = px["origin"], px["direction"]
     s = _init_march(origin, direction, px["march_px"])
     batch = px["flat_px"].shape
@@ -195,11 +204,14 @@ def _finalize(state: MarchState, ctx: RenderContext, sc, cfg, r_s,
     flat_hit = intersect_scene(state.pos, state.direction,
                                torch.full(batch, -1.0, device=dev), sc, r_s,
                                test_ray)
-    flat_rgba = shade(flat_hit, -state.direction, sc, tex)
+    trilinear = cfg.texture_filter == "trilinear"
+    flat_rgba = shade(flat_hit, -state.direction, sc, tex,
+                      trilinear=trilinear)
     flat_color = torch.where((flat_hit.valid & do_flat)[..., None],
                              flat_rgba, 0.0)
     flat_needs_bg = do_flat & (flat_color[..., 3] != 1.0)
-    bg = get_background(ctx.background, state.direction)
+    bg = get_background(ctx.background, state.direction,
+                        trilinear=trilinear)
     color = state.color + flat_color
 
     if cfg.horizon_softness > 0.0:

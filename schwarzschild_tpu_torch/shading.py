@@ -1,5 +1,6 @@
 """Phong shading, UV transforms, normal maps and the equirect background
-(counterpart of ``schwarzschild_tpu.shading``, bilinear sampling only)."""
+(counterpart of ``schwarzschild_tpu.shading``), bilinear at level 0 or
+trilinear over the mip pyramid at a screen-space LOD."""
 
 from __future__ import annotations
 
@@ -17,7 +18,15 @@ from .scene import (
     OBJECT_TYPE_TEST_RAY_FLAT,
     Scene,
 )
-from .textures import Texture, TextureStack, sample_stack, sample_texture
+from .textures import (
+    Texture,
+    TextureStack,
+    sample_stack,
+    sample_stack_trilinear,
+    sample_texture,
+    sample_texture_trilinear,
+    screen_space_lod,
+)
 
 TEST_RAY_CURVED_COLOR = (1.0, 0.0, 0.0, 1.0)  # frag:191
 TEST_RAY_FLAT_COLOR = (0.0, 1.0, 0.0, 1.0)  # frag:192
@@ -36,6 +45,8 @@ class TexelRequest(NamedTuple):
     index: torch.Tensor  # int32 stack index
     use_tex: torch.Tensor  # bool: base colour comes from the texture
     uv: torch.Tensor  # (..., 2) post-swap/invert uv (normal-map input)
+    cont_u: torch.Tensor  # continuous (before the plane's mod) uv, the
+    cont_v: torch.Tensor  # input of the trilinear LOD
 
 
 def texel_request(hit: Hit, sc: Scene, tex: TextureStack) -> TexelRequest:
@@ -71,8 +82,10 @@ def texel_request(hit: Hit, sc: Scene, tex: TextureStack) -> TexelRequest:
     render_color = torch.where(is_plane, hit.plane_repeat | in_window, True)
     sample_uv = torch.where(is_plane[..., None], plane_tiled, rescaled_uv)
     use_tex = (texture_index >= 0) & render_color
+    cont_uv = torch.where(is_plane[..., None], plane_uv_src / size,
+                          rescaled_uv)
     return TexelRequest(sample_uv[..., 0], sample_uv[..., 1], texture_index,
-                        use_tex, uv)
+                        use_tex, uv, cont_uv[..., 0], cont_uv[..., 1])
 
 
 def _shade_lit(hit: Hit, view_dir, sc: Scene, base_color, nm_rgb):
@@ -134,10 +147,14 @@ def _shade_lit(hit: Hit, view_dir, sc: Scene, base_color, nm_rgb):
 
 
 def shade(hit: Hit, view_dir, sc: Scene,
-          tex: Optional[TextureStack] = None) -> torch.Tensor:
-    """RGBA (..., 4) lighting for a batch of hits, level-0 bilinear texels.
-    ``view_dir`` points from the surface to the camera; callers mask by
-    ``hit.valid``."""
+          tex: Optional[TextureStack] = None,
+          trilinear: bool = False) -> torch.Tensor:
+    """RGBA (..., 4) lighting for a batch of hits.  ``view_dir`` points
+    from the surface to the camera; callers mask by ``hit.valid``.
+
+    ``trilinear``: sample ``tex.mips`` at a screen-space LOD, which needs
+    the batch to be an (H, W) image grid; False, or a stack without mips,
+    samples level 0 bilinearly, as the reference does."""
     m = sc.materials
     mi = torch.clamp(hit.mat_idx, 0, m.color.shape[0] - 1)
     color = _gather(m.color, mi)
@@ -145,7 +162,17 @@ def shade(hit: Hit, view_dir, sc: Scene,
     nm_rgb = None
     if tex is not None:
         req = texel_request(hit, sc, tex)
-        sampled = sample_stack(tex, req.index, req.u, req.v)
+        use_mips = trilinear and len(tex.mips) > 0
+        if use_mips:
+            # LOD from same-object neighbours only (GL's quad derivatives).
+            same_key = hit.obj_type * 65536 + mi
+            lod = screen_space_lod(req.cont_u * tex.max_size[0],
+                                   req.cont_v * tex.max_size[1],
+                                   valid=hit.valid, key=same_key)
+            sampled = sample_stack_trilinear(tex, req.index, req.u, req.v,
+                                             lod)
+        else:
+            sampled = sample_stack(tex, req.index, req.u, req.v)
         base_color = torch.where(req.use_tex[..., None], sampled, color)
         # Normal map (frag:408-413): the raw rgb in [0, 1], as the
         # reference uses it.  Skipped when no material has one.
@@ -155,8 +182,16 @@ def shade(hit: Hit, view_dir, sc: Scene,
                 tex.sizes,
                 torch.clamp(normal_map_index, 0, tex.sizes.shape[0] - 1))
             nm_uv = req.uv * nm_sizes / tex.max_size
-            nm_rgb = sample_stack(tex, normal_map_index, nm_uv[..., 0],
-                                  nm_uv[..., 1])[..., :3]
+            if use_mips:
+                nm_lod = screen_space_lod(nm_uv[..., 0] * tex.max_size[0],
+                                          nm_uv[..., 1] * tex.max_size[1],
+                                          valid=hit.valid, key=same_key)
+                nm_rgb = sample_stack_trilinear(
+                    tex, normal_map_index, nm_uv[..., 0], nm_uv[..., 1],
+                    nm_lod)[..., :3]
+            else:
+                nm_rgb = sample_stack(tex, normal_map_index, nm_uv[..., 0],
+                                      nm_uv[..., 1])[..., :3]
     return _shade_lit(hit, view_dir, sc, base_color, nm_rgb)
 
 
@@ -171,9 +206,15 @@ def equirect_uv(direction):
     return u, v
 
 
-def get_background(bg: Texture, direction) -> torch.Tensor:
-    """Equirectangular sky sample of a unit direction (frag:829-837)."""
+def get_background(bg: Texture, direction,
+                   trilinear: bool = False) -> torch.Tensor:
+    """Equirectangular sky sample of a unit direction (frag:829-837);
+    ``trilinear`` as in :func:`shade`, over the image grid."""
     u, v = equirect_uv(direction)
+    if trilinear and len(bg.mips) > 0:
+        h, w = bg.data.shape[-3], bg.data.shape[-2]
+        return sample_texture_trilinear(bg, u, v, screen_space_lod(u * w,
+                                                                   v * h))
     return sample_texture(bg, u, v)
 
 

@@ -433,3 +433,53 @@ def test_render_trajectory_launches_once_per_rendered_frame(dev, tmp_path):
     again, launches = run(out_dir=tmp_path, prefetch=2, encode_workers=2)
     assert launches == 1
     assert [i for i, _ in again] == [0, 1, 2, 3]
+
+
+@pytest.mark.parametrize("frame", ["render_fast", "render_horizon_sky",
+                                   "render_fast_gradient"])
+def test_trilinear_frames_on_card_match_cpu(dev, frame):
+    """texture_filter="trilinear" on the card against the CPU: frames by
+    the frame rule, one march launch a frame; the gradient frame's r_s and
+    texel gradients (through the mips) by the gradient rule."""
+    cfg = sp.RenderConfig(width=64, height=36, percent_black=-1.0,
+                          texture_filter="trilinear")
+    host = [configs.demo_scene(device="cpu"),
+            configs.demo_camera(device="cpu"),
+            configs.background_texture(device="cpu"),
+            configs.demo_texture_stack(device="cpu")]
+
+    def run(sc, cam, bg, tex):
+        if frame == "render_horizon_sky":
+            return sp.render_horizon_sky(cam, cfg, bg, 1.0)
+        if frame == "render_fast":
+            return sp.render_fast(sc, cam, cfg, bg, tex, 1.0)
+        r_s = torch.tensor(1.0, device=bg.data.device, requires_grad=True)
+        data = tex.data.clone().requires_grad_(True)
+        img = sp.render_fast(sc, cam, cfg, bg, tex._replace(data=data), r_s,
+                             overflow="ignore", differentiable=True)
+        return torch.autograd.grad(img.sum(), [r_s, data])
+
+    wrapper = (kernel.march_bh if frame == "render_horizon_sky"
+               else kernel_scene.march_scene)
+    before = wrapper.launches
+    gpu = run(*[sp.to_device(a, dev) for a in host])
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    cpu = run(*host)
+    if frame == "render_fast_gradient":
+        for g, c in zip(gpu, cpu):
+            assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
+            torch.testing.assert_close(g.cpu(), c, rtol=2e-2, atol=1e-3)
+        return
+    ok = ((gpu.cpu() - cpu).abs().amax(-1) < 2e-3).float().mean().item()
+    assert ok >= 0.995, ok
+
+
+@pytest.mark.parametrize("seed,shape", [(0, (720, 1280)), (7, (37, 53))])
+def test_prng_field_on_card_equals_cpu(dev, seed, shape):
+    """The threefry field is integer arithmetic: bit-equal on the card."""
+    from schwarzschild_tpu_torch import noise
+
+    gpu = noise.prng_uniform(seed, shape, device=dev).cpu()
+    cpu = noise.prng_uniform(seed, shape, device="cpu")
+    assert torch.equal(gpu.view(torch.int32), cpu.view(torch.int32))

@@ -83,6 +83,11 @@ def _assert_tree_close(a, b, path="", atol=0.0):
             _assert_tree_close(getattr(a, f), getattr(b, f), f"{path}.{f}",
                                atol)
         return
+    if isinstance(b, tuple):  # a texture's mip levels
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_tree_close(x, y, f"{path}[{i}]", atol)
+        return
     a = np.asarray(a)
     b = b.numpy()
     assert a.shape == b.shape, path
@@ -213,10 +218,21 @@ def test_render_config_converts():
         st.RenderConfig())
 
 
-def test_texture_with_mips_is_rejected(demo):
+def test_texture_with_mips_round_trips(demo):
+    """A JAX texture with mips converts level for level, and samples
+    trilinearly as the JAX one does."""
     j, _ = demo
-    with pytest.raises(NotImplementedError):
-        convert.texture(_np(jtex.with_mips(j["bg"])), device="cpu")
+    ref = jtex.with_mips(j["bg"])
+    got = convert.texture(_np(ref), device="cpu")
+    assert len(got.mips) == len(ref.mips) > 0
+    for g, r in zip((got.data,) + got.mips, (ref.data,) + ref.mips):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    u, v = _uv(500, 4)
+    lod = np.random.default_rng(5).uniform(0, 8, 500).astype(np.float32)
+    np.testing.assert_allclose(
+        ttex.sample_texture_trilinear(got, _t(u), _t(v), _t(lod)).numpy(),
+        np.asarray(jtex.sample_texture_trilinear(ref, u, v, lod)),
+        rtol=1e-6, atol=1e-7)
 
 
 def _uv(n, seed):

@@ -155,8 +155,17 @@ def test_render_horizon_sky_rejects_unported_options():
     assert torch.equal(img, tkernel.render_horizon_sky(*args))
 
 
-def test_prng_noise_is_refused():
-    cfg = sp.RenderConfig(width=8, height=8, noise_mode="prng")
-    u = torch.zeros(8, 8)
-    with pytest.raises(ValueError, match="threefry"):
-        tkernel.noise_field(cfg, u, u)
+@pytest.mark.parametrize("seed,shape", [(0, (8, 8)), (7, (13, 5)),
+                                        (12345, (1, 31)),
+                                        (2 ** 31 - 1, (24, 17))])
+def test_prng_noise_matches_jax_bits(seed, shape):
+    """noise_mode="prng" is jax.random.uniform(jax.random.key(seed),
+    (H, W)) bit for bit."""
+    H, W = shape
+    cfg = sp.RenderConfig(width=W, height=H, noise_mode="prng",
+                          noise_seed=seed)
+    u = torch.zeros(H, W)
+    got = tkernel.noise_field(cfg, u, u).numpy()
+    ref = np.asarray(jax.random.uniform(jax.random.key(seed), (H, W)))
+    assert got.dtype == ref.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))

@@ -208,8 +208,22 @@ def test_render_fast_rejects_unported_options(demo, option):
         tks.render_fast(*args, **{option: True})
 
 
-def test_trilinear_filter_is_refused(demo):
-    _, t = demo
-    cfg = sp.RenderConfig(width=8, height=8, texture_filter="trilinear")
-    with pytest.raises(NotImplementedError):
-        tks.render_fast(t["scene"], t["cam"], cfg, t["bg"], t["tex"])
+def test_trilinear_filter_matches_pallas(demo):
+    """texture_filter="trilinear" against the JAX frame (interpret mode) at
+    24x16, by the frame rule; an unknown filter raises ValueError.  The JAX
+    frame is evaluated op by op, as the port's is: under jax.jit XLA's
+    fusion moves a few background pixels' LOD between two mip levels (JAX
+    against itself; tests/test_torch_trilinear.py)."""
+    j, t = demo
+    cfg = st.RenderConfig(width=24, height=16, percent_black=-1.0,
+                          texture_filter="trilinear")
+    ref = np.asarray(jks.render_fast(j["scene"], j["cam"], cfg, j["bg"],
+                                     j["tex"], 1.0, interpret=True,
+                                     overflow="ignore"))
+    got = tks.render_fast(t["scene"], t["cam"], convert.render_config(cfg),
+                          t["bg"], t["tex"], 1.0, overflow="ignore")
+    assert torch.isfinite(got).all()
+    frame_close(ref, got.numpy())
+    with pytest.raises(ValueError, match="texture_filter"):
+        tks.render_fast(t["scene"], t["cam"], sp.RenderConfig(
+            width=8, height=8, texture_filter="nearest"), t["bg"], t["tex"])

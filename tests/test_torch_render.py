@@ -1,7 +1,8 @@
 """The port's dense differentiable renderer (``render.render``) held against
-the JAX package's on the CPU: frames of the demo scene in four
+the JAX package's on the CPU: frames of the demo scene in six
 configurations (curved; split screen with the crosshair and hash noise;
-the other split with a soft horizon and tile noise; GLSL noise), strips
+the other split with a soft horizon and tile noise; GLSL noise; trilinear
+mips; jax.random's "prng" noise), strips
 (``rows=``) and chunked marches (``checkpoint_every``) equal to the whole
 frame, and autograd gradients against ``jax.grad``.  Each JAX reference is
 one compile per module fixture."""
@@ -40,6 +41,8 @@ VARIANTS = {
         raytrace_type=st.HALF_HEIGHT, horizon_softness=0.05,
         percent_black=0.5, noise_mode="tile", noise_tile=(4, 8)),
     "glsl": dict(percent_black=0.5, noise_mode="glsl"),
+    "trilinear": dict(texture_filter="trilinear"),
+    "prng": dict(percent_black=0.5, noise_mode="prng", noise_seed=3),
 }
 
 
@@ -84,7 +87,8 @@ def _port_frame(t, cfg, **kw):
 @pytest.mark.parametrize("name", list(VARIANTS))
 def test_render_matches_jax(demo, jax_frames, name):
     """At least 99.5% of pixels within 2e-3 of the JAX frame and a median
-    difference under 5e-4 (tests/test_kernel_scene.py's frame rule).
+    difference under 5e-4 (tests/test_kernel_scene.py's frame rule); "prng" skips half the
+    pixels by jax.random's own field, "trilinear" samples the mips.
     GLSL's hash is not portable (its 43758 amplification turns 1-ulp
     differences of sin, or a fused multiply-add, into other masks; the JAX
     package documents it): that variant is held on the pixels that both
@@ -134,12 +138,10 @@ def test_checkpointed_march_is_bit_equal(demo):
 
 
 def test_render_options_refused(demo):
+    """An unknown texture filter raises ValueError.  ("prng" noise and
+    "trilinear" filtering, once refused here, are held to the JAX frame by
+    test_render_matches_jax.)"""
     _, t = demo
-    with pytest.raises(ValueError, match="prng"):
-        _port_frame(t, dataclasses.replace(CFG, percent_black=0.5,
-                                           noise_mode="prng"))
-    with pytest.raises(NotImplementedError):
-        _port_frame(t, dataclasses.replace(CFG, texture_filter="trilinear"))
     with pytest.raises(ValueError, match="texture_filter"):
         _port_frame(t, dataclasses.replace(CFG, texture_filter="nearest"))
 
@@ -180,7 +182,9 @@ def test_render_gradients_match_jax(grad_case):
     camera's position and fov, the background texels and the hollow disk's
     outer radius.  The disk's radius is held to JAX's value whatever it is
     (0.0 here; the JAX suite's own scene-geometry gradient test reports a
-    0.0 gradient too, ROADMAP.md queue 1 #6)."""
+    0.0 gradient too: the disk's checker texture is piecewise constant;
+    tests/test_torch_geometry_grad.py holds a nonzero one with a smooth
+    texture)."""
     c = grad_case
     j = c["j"]
     sc = convert.scene(_np(j["scene"]), device="cpu")
