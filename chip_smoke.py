@@ -95,7 +95,25 @@ Phases, one printed line each (any failure raises, so the exit code is not
      render_horizon_sky and render_fast, by benchmarks/parity_r05.py's
      method (tools/parity_oracle.py runs configs 2 and 3 at full size);
  16. profiling: profiling.device_time of a march_bh call at 512x512 beside
-     its cuda_ms and device_ms.
+     its cuda_ms and device_ms;
+ 17. sharded: a one-rank NCCL group and make_mesh(); the demo frame at
+     1280x720 through make_sharded_render, "fast" (4 slots) and "jnp",
+     each equal to the unsharded frame bit for bit; the tile function at
+     every coordinate of meshes (4, 1), (2, 2) and (7, 1) (720 rows padded
+     to 721), each assembled frame equal to the unsharded one with one
+     march_scene launch a tile; config 2 at 512x512 through march_bh tiles
+     on (3, 1), equal to the unsharded planes; the 720p gradient in r_s
+     and cam.pos summed over 4 tiles within rtol 1e-3 of the unsharded
+     one (4 adjoint launches); the sharded and unsharded frames' times
+     and each tile's (one card: several cards over NCCL are not checked);
+ 18. viewer: examples/live_viewer_torch.py's frame function over its
+     SELFTEST_SCRIPT at 1280x720 and 192x96: uint8 frames, one
+     march_scene launch a frame (none in FLAT mode), each within 1 count
+     of the CPU port's frame of the same state on at least 99.5% of
+     pixels (every 16th row at 1280x720); median steady frame time and
+     the ansi_frame encode time;
+ 19. examples: examples/render_configs_torch.py, configs 1-4 with --fast
+     --scale 0.5: the PNGs written and the seconds a config.
 Then one JSON line of per-kernel results, the card line again, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -1163,18 +1181,18 @@ def prng_phase(sc, cam, bg, tex, reset_launches, read_launches,
 
 def oracle_phase(c2, size=512):
     """Phase 15: config 2 at size x size against the native float64 oracle
-    (schwarzschild_tpu_torch.oracle), render_horizon_sky and render_fast on
-    the card, by benchmarks/parity_r05.py's method: disagreements classified
-    by distance to the oracle image's discontinuities, every pixel off by
-    more than a display count at r0 probed for decision marginality; the
-    gate is no non-marginal offender.  Config 3 at 1024 x 1024 is
-    tools/parity_oracle.py's."""
+    (schwarzschild_tpu_torch.oracle.native), render_horizon_sky and
+    render_fast on the card, by benchmarks/parity_r05.py's method:
+    disagreements classified by distance to the oracle image's
+    discontinuities, every pixel off by more than a display count at r0
+    probed for decision marginality; the gate is no non-marginal offender.
+    Config 3 at 1024 x 1024 is tools/parity_oracle.py's."""
     import dataclasses
 
     import torch
 
     import schwarzschild_tpu_torch as sp
-    from schwarzschild_tpu_torch import oracle
+    from schwarzschild_tpu_torch.oracle import native as oracle
 
     cam, bg = c2["camera"], c2["background"]
     cfg = dataclasses.replace(c2["cfg"], width=size, height=size,
@@ -1236,6 +1254,273 @@ def profiling_phase(c2):
     require(slope_ms > 0.0, f"device_time slope {slope_ms} ms")
 
 
+def sharded_phase(sc, cam, bg, tex, c2, reset_launches, read_launches,
+                  size=(1280, 720), meshes=((4, 1), (2, 2), (7, 1)),
+                  bh_mesh=(3, 1), grad_mesh=(4, 1)):
+    """Phase 17: tile sharding (schwarzschild_tpu_torch.sharding).  A
+    one-rank process group (NCCL on the card) and make_mesh(): the demo
+    frame through make_sharded_render, "fast" (4 slots) and "jnp", each
+    equal to the unsharded frame bit for bit; then, in this one process,
+    the tile function at every coordinate of larger meshes, each assembled
+    frame equal to the unsharded one with one march_scene launch a tile
+    ((7, 1) pads 720 rows to 721); config 2's rays through march_bh tiles,
+    equal to the unsharded planes; the gradient in r_s and cam.pos summed
+    over the tiles of grad_mesh within rtol 1e-3 of the unsharded one, one
+    adjoint launch a tile; the sharded against the unsharded frame's time
+    and each tile's."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    import schwarzschild_tpu_torch as sp
+    from schwarzschild_tpu_torch import kernel, sharding
+
+    start = time.perf_counter()
+    dev = bg.data.device
+    W, H = size
+    cfg = sp.RenderConfig(width=W, height=H, percent_black=-1.0)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="smoke_pg_") as tmp:
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            mesh = sharding.make_mesh()
+            out["mesh"] = dict(shape=list(mesh.shape),
+                               device_type=mesh.device_type,
+                               backend=dist.get_backend())
+            ref = sp.render_fast(sc, cam, cfg, bg, tex, 1.0, n_slots=4,
+                                 overflow="ignore")
+            fast = sharding.make_sharded_render(mesh, cfg, "fast", 4)
+            reset_launches()
+            img = fast(sc, cam, bg, tex)
+            out["fast_launches"] = read_launches()
+            out["fast_equal"] = bool(torch.equal(img, ref))
+            dense = sp.render(sc, cam, cfg, bg, tex, 1.0)
+            dense_sharded = sharding.make_sharded_render(mesh, cfg, "jnp")(
+                sc, cam, bg, tex)
+            out["jnp_equal"] = bool(torch.equal(dense_sharded, dense))
+            out["gather_image_equal"] = bool(
+                (sharding.gather_image(img) == ref.cpu().numpy()).all())
+            out["sharded_frame_ms"] = cuda_ms(lambda: fast(sc, cam, bg, tex))
+            out["unsharded_frame_ms"] = cuda_ms(lambda: sp.render_fast(
+                sc, cam, cfg, bg, tex, 1.0, n_slots=4, overflow="ignore"))
+        finally:
+            dist.destroy_process_group()
+
+    tiles_out = {}
+    for shape in meshes:
+        tile = sharding.make_tile_render(cfg, "fast", 4, shape)
+        coords = [(i, j) for i in range(shape[0]) for j in range(shape[1])]
+        reset_launches()
+        tiles = [tile(c, sc, cam, bg, tex) for c in coords]
+        launches = read_launches()["march_scene"]
+        equal = bool(torch.equal(sharding.assemble(tiles, H, W, shape), ref))
+        ms = [cuda_ms(functools.partial(tile, c, sc, cam, bg, tex),
+                      warmup=1, reps=3) for c in coords]
+        tiles_out[str(shape)] = dict(
+            tile=list(sharding.tile_size(H, W, shape)), equal=equal,
+            march_scene_launches=launches, tile_ms=ms)
+        require(equal, f"mesh {shape}: assembled tiles differ from the frame")
+        require(launches == len(coords),
+                f"mesh {shape}: {launches} march_scene launches for "
+                f"{len(coords)} tiles")
+
+    cfg2 = c2["cfg"]
+    o, d, act = rays(c2["camera"], cfg2.width, cfg2.height, dev)
+    planes = kernel.march_bh(o, d, act, 1.0, cfg2, events=True)
+    march = functools.partial(kernel.march_bh, cfg=cfg2, events=True)
+    reset_launches()
+    parts = [sharding.march_tile(march, bh_mesh, (i, j), o, d, act, 1.0)
+             for i in range(bh_mesh[0]) for j in range(bh_mesh[1])]
+    bh_launches = read_launches()["march_bh"]
+
+    def whole(get):
+        return sharding.assemble([get(p) for p in parts], cfg2.height,
+                                 cfg2.width, bh_mesh)
+
+    bh_equal = all(torch.equal(whole(get), get(planes)) for get in (
+        lambda p: p[0], lambda p: p[1], lambda p: p[2]["t_end"],
+        lambda p: p[2]["died_moving"]))
+    require(bh_equal, f"march_bh tiles on {bh_mesh} differ from the planes")
+    require(bh_launches == bh_mesh[0] * bh_mesh[1],
+            f"march_bh tiles launched {bh_launches}")
+
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    w = torch.rand((H, W, 4), generator=gen).to(dev)
+
+    def grads(render):
+        pos = cam.pos.clone().requires_grad_(True)
+        r_s = torch.tensor(1.0, device=dev, requires_grad=True)
+        loss = render(cam._replace(pos=pos), r_s)
+        return torch.autograd.grad(loss, [r_s, pos])
+
+    ref_g = grads(lambda c, r: (sp.render_fast(
+        sc, c, cfg, bg, tex, r, n_slots=4, overflow="ignore",
+        differentiable=True) * w).sum())
+    tile = sharding.make_tile_render(cfg, "fast", 4, grad_mesh,
+                                     differentiable=True)
+    coords = [(i, j) for i in range(grad_mesh[0])
+              for j in range(grad_mesh[1])]
+    reset_launches()
+    tile_g = [grads(lambda c, r, xy=xy: (tile(xy, sc, c, bg, tex, r)
+                                         * sharding.tile_of(w, H, W,
+                                                            grad_mesh,
+                                                            xy)).sum())
+              for xy in coords]
+    grad_launches = read_launches()
+    summed = [sum(g[k] for g in tile_g) for k in range(2)]
+    grad_ok = all(bool(torch.allclose(a, b, rtol=1e-3, atol=1e-6))
+                  for a, b in zip(summed, ref_g))
+    grad_ms = dict(
+        frame=cuda_ms(lambda: grads(lambda c, r: (sp.render_fast(
+            sc, c, cfg, bg, tex, r, n_slots=4, overflow="ignore",
+            differentiable=True) * w).sum()), warmup=1, reps=3),
+        tiles=[cuda_ms(lambda xy=xy: grads(lambda c, r: (
+            tile(xy, sc, c, bg, tex, r)
+            * sharding.tile_of(w, H, W, grad_mesh, xy)).sum()),
+            warmup=1, reps=3) for xy in coords])
+    log("sharded", seconds=time.perf_counter() - start, shape=[H, W], **out,
+        tiles=tiles_out,
+        march_bh=dict(shape=[cfg2.height, cfg2.width], mesh=list(bh_mesh),
+                      equal=bh_equal, launches=bh_launches),
+        gradient=dict(mesh=list(grad_mesh), summed_r_s=summed[0].item(),
+                      unsharded_r_s=ref_g[0].item(),
+                      summed_pos=summed[1].tolist(),
+                      unsharded_pos=ref_g[1].tolist(), within_rule=grad_ok,
+                      launches=grad_launches, ms=grad_ms))
+    require(out["fast_equal"] and out["jnp_equal"]
+            and out["gather_image_equal"],
+            "a sharded frame differs from the unsharded one")
+    require(out["fast_launches"]["march_scene"] == 1,
+            f"sharded fast frame launched {out['fast_launches']}")
+    require(grad_ok, "tile gradients do not sum to the frame's")
+    require(grad_launches["march_scene_bwd"] == len(coords),
+            f"tile gradients launched {grad_launches}")
+
+
+def _load_example(name):
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def viewer_phase(dev, cpu, reset_launches, read_launches,
+                 sizes=((1280, 720), (192, 96)), cpu_row_stride=(16, 1)):
+    """Phase 18: examples/live_viewer_torch.py's own frame function
+    (make_renderer) over SELFTEST_SCRIPT, played as its run_script plays
+    it, at 1280x720 (the reference's window, main.cpp:25-26) and 192x96:
+    every frame (H, W, 3) uint8, one march_scene launch a frame (none in
+    FLAT mode), within 1 count of the CPU port's frame of the same state on
+    at least 99.5% of pixels (at 1280x720 on every cpu_row_stride-th row:
+    the CPU renders those rows from the frame's full-size grid, as a tile
+    is rendered); the median steady frame time and the ansi_frame encode
+    time."""
+    import numpy as np
+
+    import schwarzschild_tpu_torch as sp
+    from schwarzschild_tpu_torch import configs, kernel, viewer
+    from schwarzschild_tpu_torch.features import calculate_test_ray
+
+    start = time.perf_counter()
+    ex = _load_example("live_viewer_torch")
+    conf = dict(scene=configs.demo_scene(device=dev),
+                background=configs.background_texture(device=dev),
+                tex=configs.demo_texture_stack(device=dev))
+    conf_cpu = dict(scene=configs.demo_scene(device=cpu),
+                    background=configs.background_texture(device=cpu),
+                    tex=configs.demo_texture_stack(device=cpu))
+    results = []
+    for (W, H), stride in zip(sizes, cpu_row_stride):
+        frame = ex.make_renderer(conf, W, H, dev)
+        rows = range(0, H, stride)
+        state = viewer.initial_state()
+        tray, on = None, False
+        times, shares, launches, encode_ms = [], [], [], []
+        for key in ex.SELFTEST_SCRIPT:
+            reset_launches()
+            t0 = time.perf_counter()
+            img = frame(state)
+            times.append((time.perf_counter() - t0) * 1e3)
+            n = read_launches()["march_scene"]
+            want = 0 if state.raytrace_type == sp.FLAT else 1
+            require(img.shape == (H, W, 3) and img.dtype == np.uint8,
+                    f"viewer frame {img.dtype} {img.shape}")
+            require(n == want, f"viewer frame ({state.raytrace_type}): "
+                    f"{n} march_scene launches, not {want}")
+            launches.append(n)
+            if state.test_ray and not on:
+                tray = calculate_test_ray(state.cam, device=cpu)
+            on = state.test_ray
+            cfg = sp.RenderConfig(width=W, height=H, percent_black=-1.0,
+                                  raytrace_type=state.raytrace_type,
+                                  crosshair=True)
+            part = kernel.take_pixels(
+                kernel.grid_planes(state.cam, cfg, cpu), rows)
+            want_img = sp.to_uint8(sp.render_fast(
+                conf_cpu["scene"], None, cfg, conf_cpu["background"],
+                conf_cpu["tex"], 1.0, overflow="ignore",
+                test_ray=tray if state.test_ray else None,
+                precomputed=part)).numpy()
+            diff = np.abs(img[::stride].astype(np.int16) - want_img)
+            shares.append(float((diff.max(-1) <= 1).mean()))
+            t0 = time.perf_counter()
+            viewer.ansi_frame(img, viewer.hud(state, times[-1]))
+            encode_ms.append((time.perf_counter() - t0) * 1e3)
+            state = viewer.advance_flyby(viewer.apply_key(state, key), 0.05)
+            if state.quit:
+                break
+        steady = sorted(times[2:])[len(times[2:]) // 2]
+        results.append(dict(size=[H, W], frames=len(times),
+                            median_steady_frame_ms=steady, frame_ms=times,
+                            march_scene_launches=launches,
+                            cpu_rows_compared=len(rows),
+                            within_1_count=shares,
+                            ansi_encode_ms=statistics.median(encode_ms)))
+        require(len(times) == len(ex.SELFTEST_SCRIPT),
+                f"viewer played {len(times)} frames")
+        require(min(shares) >= 0.995,
+                f"viewer {W}x{H}: card vs CPU frames {min(shares)}")
+    log("viewer", seconds=time.perf_counter() - start,
+        script="".join(k[0] for k in ex.SELFTEST_SCRIPT), runs=results)
+
+
+def examples_phase(reset_launches, read_launches, configs_=(1, 2, 3, 4),
+                   scale=0.5, device="cuda"):
+    """Phase 19: examples/render_configs_torch.py for configs 1-4 with
+    --fast --scale 0.5 on the card: the PNGs written (decoded here), the
+    seconds a config (its metrics.jsonl) and the launches."""
+    ex = _load_example("render_configs_torch")
+    with tempfile.TemporaryDirectory(prefix="smoke_configs_") as tmp:
+        reset_launches()
+        t0 = time.perf_counter()
+        written = ex.main(["--config", ",".join(map(str, configs_)),
+                           "--fast", "--scale", str(scale), "--out", tmp,
+                           "--device", device])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        records = [json.loads(line) for line in
+                   (Path(tmp) / "metrics.jsonl").read_text().splitlines()]
+        seconds = {str(r.get("config", 4)): r["seconds"] for r in records
+                   if r["event"] in ("config_done", "config4_done")}
+        pngs = {str(n): [[p.name, list(read_png(p).shape)] for p in paths]
+                for n, paths in written.items()}
+    log("examples", configs=list(configs_), scale=scale, pngs=pngs,
+        seconds=seconds, wall_seconds=wall, launches=launches)
+    require(all(len(pngs[str(n)]) == (8 if n == 4 else 1)
+                for n in configs_),
+            f"render_configs wrote {pngs}")
+    require(launches["march_scene"] >= 1,
+            f"render_configs launched {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -1263,6 +1548,7 @@ def main() -> int:
         return {f.__name__: f.launches for f in counters}
 
     # 0. device
+    t_start = time.perf_counter()
     card = card_line()
     log("device", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
@@ -1621,6 +1907,12 @@ def main() -> int:
     oracle_phase(c2)
     profiling_phase(c2)
 
+    # 17-19. tile sharding, the live viewer, the config script
+    sharded_phase(sc, cam, bg, tex, c2, reset_launches, read_launches)
+    viewer_phase(dev, cpu, reset_launches, read_launches)
+    examples_phase(reset_launches, read_launches)
+
+    log("total", seconds=time.perf_counter() - t_start)
     src = "schwarzschild_tpu_torch/csrc/march.cu"
     kernels = [
         dict(name="march_bh", route="cuda", source=src,

@@ -29,6 +29,7 @@ from .scene import (
 )
 from .intersect import Hit, TestRay, intersect_scene
 from .render import encode_png, render, save_png, to_uint8
+from .geometry import Transform, make_transform
 from .shading import get_background, shade
 from .textures import (
     Texture,

@@ -17,6 +17,7 @@ import torch
 
 from .camera import Camera
 from .config import RenderConfig, resolve_device
+from .geometry import Transform
 from .intersect import TestRay
 from .scene import (
     BoxesSoA,
@@ -51,6 +52,21 @@ def scene(src, device=None) -> Scene:
 
 def camera(src, device=None) -> Camera:
     return _fields(Camera, src, device)
+
+
+def transform(src, device=None) -> Transform:
+    return _fields(Transform, src, device)
+
+
+def viewer_state(src):
+    """A JAX ``viewer.ViewerState`` as this package's, its camera on the
+    CPU as the viewer keeps it."""
+    from .viewer import ViewerState
+
+    return ViewerState(cam=camera(src.cam, device="cpu"),
+                       raytrace_type=int(src.raytrace_type),
+                       test_ray=bool(src.test_ray), flyby_t=src.flyby_t,
+                       quit=bool(src.quit))
 
 
 def _with_mip_levels(cls, src, device):

@@ -11,9 +11,17 @@ torch vectorises a reduction over a dimension of three.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
+from .config import resolve_device
+
 EPSILON = 1e-7  # black_hole.frag:30
+
+# numpy, as in the JAX package: a constant that lives on no device.
+IDENTITY_AXES = np.eye(3, dtype=np.float32)
 
 
 def _sum3(x):
@@ -27,6 +35,51 @@ def true_div(a, b):
     if not isinstance(b, torch.Tensor):
         b = torch.tensor(b, dtype=a.dtype, device=a.device)
     return a / b
+
+
+class Transform(NamedTuple):
+    """Position and column frame (the reference's Transform class,
+    src/lib/Objects/Transform/transform.h:9-50): ``pos`` (3,), ``axes``
+    (3, 3) with columns (right, up, forward)."""
+
+    pos: torch.Tensor
+    axes: torch.Tensor
+
+    @property
+    def right(self):
+        return self.axes[..., :, 0]
+
+    @property
+    def up(self):
+        return self.axes[..., :, 1]
+
+    @property
+    def forward(self):
+        return self.axes[..., :, 2]
+
+    def with_forward_from_right_up(self) -> "Transform":
+        f = normalize(cross(self.right, self.up))
+        return self._replace(axes=torch.stack([self.right, self.up, f], -1))
+
+    def with_right_from_up_forward(self) -> "Transform":
+        r = normalize(cross(self.up, self.forward))
+        return self._replace(
+            axes=torch.stack([r, self.up, self.forward], -1))
+
+    def with_up_from_forward_right(self) -> "Transform":
+        u = normalize(cross(self.forward, self.right))
+        return self._replace(
+            axes=torch.stack([self.right, u, self.forward], -1))
+
+
+def make_transform(pos=(0.0, 0.0, 0.0), axes=None, device=None) -> Transform:
+    """A :class:`Transform` of float32 tensors on ``device`` (default: the
+    card); ``axes`` defaults to the identity frame."""
+    device = resolve_device(device)
+    axes = IDENTITY_AXES if axes is None else axes
+    return Transform(
+        pos=torch.tensor(np.asarray(pos, np.float32), device=device),
+        axes=torch.tensor(np.asarray(axes, np.float32), device=device))
 
 
 def mat_vec(m, v):
@@ -79,6 +132,10 @@ def square_vector(v):
     return dot(v, v)
 
 
+def distance(a, b):
+    return length(a - b)
+
+
 def reflect(incident, normal):
     """GLSL ``reflect``: I - 2*dot(N, I)*N."""
     return incident - 2.0 * dot(normal, incident)[..., None] * normal
@@ -96,6 +153,25 @@ def gram_schmidt(m):
     c0 = c0 - project(c0, c1)
     c2 = c2 - project(c2, c1) - project(c2, c0)
     return torch.stack([normalize(c0), normalize(c1), normalize(c2)], dim=-1)
+
+
+def rotate_vector(angle, v, axis=None):
+    """Rotate ``v`` by ``angle`` (radians) about ``axis`` (default world
+    up): the Rodrigues rotation that replaces the reference's mouse-look
+    helper (src/lib/utils/utils.cpp:6-18).  ``angle`` is rounded to
+    float32 first, as the JAX package rounds a Python number."""
+    if axis is None:
+        axis = torch.tensor([0.0, 1.0, 0.0], device=v.device)
+    axis = normalize(torch.as_tensor(axis, dtype=torch.float32,
+                                     device=v.device))
+    # cos and sin in float64, rounded once: the correctly rounded float32
+    # values, which XLA's float32 cos gives where torch's can miss by an
+    # ulp (the viewer's states stay equal to the JAX package's).
+    angle = torch.as_tensor(angle, dtype=torch.float32, device=v.device)
+    c = torch.cos(angle.double()).float()
+    s = torch.sin(angle.double()).float()
+    return v * c + cross(axis, v) * s + axis * dot(axis, v)[..., None] * (
+        1.0 - c)
 
 
 def quat_to_axes(q):

@@ -17,6 +17,8 @@ like the kernel on the GPU too.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -244,7 +246,7 @@ def check_rays(origin, direction, active):
 
 
 def march_bh(origin, direction, active, r_s, cfg: RenderConfig,
-             events: bool = False, count_steps: bool = False):
+             events: bool = False, count_steps: bool = False, mesh=None):
     """Horizon + sky march of (..., 3) rays: (final_dir (..., 3), status
     (...,) float32 in {1 captured, 2 escaped}).
 
@@ -257,7 +259,18 @@ def march_bh(origin, direction, active, r_s, cfg: RenderConfig,
     of their loop iterations (an int64 scalar tensor).
 
     A CUDA tensor launches ``march_bh_kernel`` (counted in
-    ``march_bh.launches``); a CPU tensor runs :func:`march_bh_torch`."""
+    ``march_bh.launches``); a CPU tensor runs :func:`march_bh_torch`.
+    ``mesh`` (a ``DeviceMesh``, see ``sharding.make_mesh``) marches this
+    rank's tile of the (H, W) rays, one launch, and returns the full
+    planes on every rank (``sharding.shard_march``)."""
+    if mesh is not None:
+        if count_steps:
+            raise ValueError("count_steps: a march on one device only")
+        from .sharding import shard_march
+
+        return shard_march(mesh, functools.partial(
+            march_bh, cfg=cfg, events=events))(origin, direction, active,
+                                               r_s)
     check_rays(origin, direction, active)
     want = events or count_steps
     if origin.device.type == "cpu":
@@ -327,12 +340,19 @@ class _MarchBhDiff(torch.autograd.Function):
         return g_o, g_d, g_rs.reshape(r_s.shape), None, None
 
 
-def march_bh_diff(origin, direction, active, r_s, cfg: RenderConfig):
+def march_bh_diff(origin, direction, active, r_s, cfg: RenderConfig,
+                  mesh=None):
     """Differentiable :func:`march_bh`: (final_dir, status), with gradients
     to origin, direction and r_s at the decisions the forward took.  The
     JAX package takes its backward from jax.vjp of a jnp replay of the
     whole march; here it is the adjoint kernel (``march_scene_bwd``), the
-    same fixed-decision gradient."""
+    same fixed-decision gradient.  ``mesh`` as :func:`march_bh`'s: each
+    rank's adjoint runs on its own tile."""
+    if mesh is not None:
+        from .sharding import shard_march
+
+        return shard_march(mesh, functools.partial(march_bh_diff, cfg=cfg))(
+            origin, direction, active, r_s)
     r_s = _f32(r_s, origin.device)
     return _MarchBhDiff.apply(origin, direction, r_s, active, cfg)
 
@@ -342,19 +362,53 @@ def march_bh_diff(origin, direction, active, r_s, cfg: RenderConfig):
 # ---------------------------------------------------------------------------
 
 
-def pixel_setup(cam, cfg: RenderConfig, device, rows=None):
-    """Rays and per-pixel masks shared by the frames: a dict with u, v,
-    origin, direction, base (crosshair overlay), flat_px, noise_skip,
-    march_px and normal_vec0.  ``rows=(r0, r1)`` keeps image rows [r0, r1)
-    of the full frame; the noise field is built at full size and sliced,
-    so every value equals the full frame's."""
+def grid_planes(cam, cfg: RenderConfig, device):
+    """The frame's grid quantities, computed on the full H x W grid: a dict
+    of ``origin`` and ``direction`` (H, W, 3), ``u_ndc`` and ``v_ndc``
+    (H, W) and ``rnd`` (H, W), the noise field (zeros with noise off).
+    They depend on absolute pixel coordinates, so a strip or tile of a
+    frame takes its part of them (:func:`take_pixels`), never recomputes
+    them on its own grid."""
+    H, W = cfg.height, cfg.width
+    u, v = cam_mod.pixel_grid(W, H, device=device)
+    origin, direction = cam_mod.generate_rays(cam, u, v, W, H)
+    return dict(origin=origin, direction=direction, u_ndc=u, v_ndc=v,
+                rnd=noise_field(cfg, u, v))
+
+
+def _index(sel):
+    """A row or column selection as an index: None (all), a (start, stop)
+    pair, a range, or an integer index tensor."""
+    if sel is None:
+        return slice(None)
+    if isinstance(sel, tuple):
+        return slice(*sel)
+    if isinstance(sel, range):
+        return slice(sel.start, sel.stop, sel.step)
+    return sel
+
+
+def take_pixels(planes, rows=None, cols=None):
+    """``planes`` (a dict of (H, W, ...) tensors) restricted to image
+    ``rows`` and ``cols``, each None, (start, stop), a range or an integer
+    index tensor (indices may repeat or wrap)."""
+    r, c = _index(rows), _index(cols)
+    return {name: x[r][:, c] for name, x in planes.items()}
+
+
+def pixel_masks(planes, cfg: RenderConfig):
+    """Per-pixel masks and the crosshair layer from given planes (those of
+    :func:`grid_planes`, or any part of them): a dict with u, v, origin,
+    direction, base (crosshair overlay), flat_px, noise_skip, march_px and
+    normal_vec0.  Every value is a function of its own pixel's planes."""
     if cfg.texture_filter not in ("bilinear", "trilinear"):
         raise ValueError(f"unknown texture_filter {cfg.texture_filter!r}")
     H, W = cfg.height, cfg.width
-    u_full, v_full = cam_mod.pixel_grid(W, H, device=device)
-    r0, r1 = (0, H) if rows is None else rows
-    u, v = u_full[r0:r1], v_full[r0:r1]
-    origin, direction = cam_mod.generate_rays(cam, u, v, W, H)
+    u, v = planes["u_ndc"], planes["v_ndc"]
+    # Contiguous, as the march wrappers take them (a tile is a view).
+    origin = planes["origin"].contiguous()
+    direction = planes["direction"].contiguous()
+    device = u.device
     batch = u.shape
 
     base = torch.zeros(batch + (4,), device=device)
@@ -374,14 +428,23 @@ def pixel_setup(cam, cfg: RenderConfig, device, rows=None):
 
     normal_vec0 = geo.safe_normalize(origin)
     flat_px = mode_flat | physics.is_radial(direction, normal_vec0)
-    rnd = noise_field(cfg, u_full, v_full)[r0:r1]
     if cfg.percent_black >= 0.0 and cfg.noise_mode != "none":
-        noise_skip = ~flat_px & (rnd <= cfg.percent_black)
+        noise_skip = ~flat_px & (planes["rnd"] <= cfg.percent_black)
     else:
         noise_skip = torch.zeros(batch, dtype=torch.bool, device=device)
     return dict(u=u, v=v, origin=origin, direction=direction, base=base,
                 flat_px=flat_px, noise_skip=noise_skip,
                 march_px=~flat_px & ~noise_skip, normal_vec0=normal_vec0)
+
+
+def pixel_setup(cam, cfg: RenderConfig, device, rows=None, cols=None):
+    """Rays and per-pixel masks shared by the frames (see
+    :func:`pixel_masks`) of the image ``rows`` and ``cols`` (see
+    :func:`take_pixels`; default the whole frame), every value equal to
+    the full frame's at that pixel: the grid quantities are built at full
+    size and then selected."""
+    return pixel_masks(take_pixels(grid_planes(cam, cfg, device), rows, cols),
+                       cfg)
 
 
 def soft_shadow_alphas(origin, direction, normal_vec0, flat_pos, flat_dir,
@@ -423,8 +486,9 @@ def render_horizon_sky(cam, cfg: RenderConfig, background: Texture, r_s=1.0,
     device of ``background``.  ``differentiable=True`` marches through
     :func:`march_bh_diff`, so gradients reach ``r_s``, the camera's tensors
     and the background texels.  ``cfg.texture_filter="trilinear"`` samples
-    the sky's mips, built here when ``background`` carries none."""
-    reject_unported(mesh=mesh)
+    the sky's mips, built here when ``background`` carries none.  ``mesh``
+    marches each rank's tile of the frame (see :func:`march_bh`) and
+    composes the full frame on every rank."""
     dev = background.data.device
     r_s = _f32(r_s, dev)
     px = pixel_setup(cam, cfg, dev)
@@ -435,7 +499,8 @@ def render_horizon_sky(cam, cfg: RenderConfig, background: Texture, r_s=1.0,
     flat_px, noise_skip = px["flat_px"], px["noise_skip"]
 
     march = march_bh_diff if differentiable else march_bh
-    final_dir, status = march(origin, direction, px["march_px"], r_s, cfg)
+    final_dir, status = march(origin, direction, px["march_px"], r_s, cfg,
+                              mesh=mesh)
 
     # Flat pixels: one horizon-sphere test + sky (frag:874-877).
     d_oc = geo.dot(direction, origin)

@@ -57,10 +57,11 @@ from .kernel import (  # noqa: F401  (statuses and noise_field are public here t
     _sphere_entry,
     _tangent_of,
     check_rays,
+    grid_planes,
     init_events,
     march_scalars,
     noise_field,
-    pixel_setup,
+    pixel_masks,
     reject_unported,
     soft_shadow_alphas,
     steps_of,
@@ -667,7 +668,7 @@ def _march_scene_planes_torch(origin, direction, active, r_s, sc: Scene,
 def march_scene(origin, direction, active, r_s, sc: Scene, cfg: RenderConfig,
                 n_slots: int = 4, tex: Optional[TextureStack] = None,
                 events: bool = False, count_steps: bool = False,
-                test_ray: Optional[TestRay] = None):
+                test_ray: Optional[TestRay] = None, mesh=None):
     """Scene march of (..., 3) rays: (final_dir, final_pos, status, slots,
     nhits); ``nhits`` counts every hit (uncapped), so ``nhits > n_slots``
     flags rays whose extra hits were dropped.  ``tex`` (the stack the hits
@@ -685,7 +686,19 @@ def march_scene(origin, direction, active, r_s, sc: Scene, cfg: RenderConfig,
     until its last lane ends).
 
     A CUDA tensor launches ``march_scene_kernel`` (counted in
-    ``march_scene.launches``); a CPU tensor runs :func:`march_scene_torch`."""
+    ``march_scene.launches``); a CPU tensor runs :func:`march_scene_torch`.
+    ``mesh`` (a ``DeviceMesh``) marches this rank's tile of the (H, W)
+    rays, one launch, and returns the full planes on every rank
+    (``sharding.shard_march``)."""
+    if mesh is not None:
+        if count_steps:
+            raise ValueError("count_steps: a march on one device only")
+        from .sharding import shard_march
+
+        return shard_march(mesh, functools.partial(
+            march_scene, sc=sc, cfg=cfg, n_slots=n_slots, tex=tex,
+            events=events, test_ray=test_ray))(origin, direction, active,
+                                               r_s)
     p = _march_scene_planes(origin, direction, active, r_s, sc, cfg, n_slots,
                             tex, events or count_steps, test_ray)
     return _as_outputs(p, events, count_steps, cfg)
@@ -1235,7 +1248,7 @@ class _MarchSceneDiff(torch.autograd.Function):
 def march_scene_diff(origin, direction, active, r_s, sc: Scene,
                      cfg: RenderConfig, n_slots: int = 4,
                      tex: Optional[TextureStack] = None,
-                     test_ray: Optional[TestRay] = None):
+                     test_ray: Optional[TestRay] = None, mesh=None):
     """Differentiable :func:`march_scene`: the forward kernel with its event
     planes, and the adjoint kernel (:func:`march_scene_bwd`) as backward.
     Gradients reach (origin, direction, r_s) at the decisions the forward
@@ -1243,7 +1256,15 @@ def march_scene_diff(origin, direction, active, r_s, sc: Scene,
     The scene's geometry gets no gradient through the march: the march reads
     it only in comparisons.  Scene and texture gradients come from the slot
     re-intersection in :func:`render_fast`.  Returns what
-    :func:`march_scene` returns."""
+    :func:`march_scene` returns.  ``mesh`` as :func:`march_scene`'s: each
+    rank's adjoint runs on its own tile (the JAX package falls back to a
+    scan replay under a mesh)."""
+    if mesh is not None:
+        from .sharding import shard_march
+
+        return shard_march(mesh, functools.partial(
+            march_scene_diff, sc=sc, cfg=cfg, n_slots=n_slots, tex=tex,
+            test_ray=test_ray))(origin, direction, active, r_s)
     r_s = _f32(r_s, origin.device)
     fdir, fpos, status, nhits, start, sdir, slen = _MarchSceneDiff.apply(
         origin, direction, r_s, active, sc, cfg, n_slots, tex, test_ray)
@@ -1284,16 +1305,25 @@ def render_fast(
     the textures' mips (built here where a texture carries none) at a
     screen-space LOD in every pass.  ``test_ray`` (a
     :class:`intersect.TestRay`) draws the debug tubes: they ride the march
-    kernel's cylinder table and the composition's re-intersection.  The
-    remaining keywords name options of the JAX package that this package
-    does not have; any value but the default raises NotImplementedError."""
+    kernel's cylinder table and the composition's re-intersection.
+
+    ``mesh`` (a ``DeviceMesh``) marches each rank's tile of the frame
+    (:func:`march_scene` with ``mesh=``) and composes the full frame on
+    every rank.  ``precomputed``: a dict of ``origin``, ``direction``
+    (batch + (3,)), ``u_ndc``, ``v_ndc`` and ``rnd`` (batch-shaped), the
+    part of the frame's grid quantities (``kernel.grid_planes``) that this
+    call renders, in place of the camera's (``cam`` may be None): the
+    tile-sharding hook (``sharding.make_tile_render``).  The remaining
+    keywords name options of the JAX package that this package does not
+    have; any value but the default raises NotImplementedError."""
     if overflow not in ("warn", "return", "ignore"):
         raise ValueError(f"unknown overflow mode {overflow!r}")
-    reject_unported(mesh=mesh, precomputed=precomputed,
-                    compact_slots=compact_slots, atlas=atlas)
+    reject_unported(compact_slots=compact_slots, atlas=atlas)
     dev = background.data.device
     r_s = torch.as_tensor(r_s, dtype=torch.float32, device=dev)
-    px = pixel_setup(cam, cfg, dev)
+    if precomputed is None:
+        precomputed = grid_planes(cam, cfg, dev)
+    px = pixel_masks(precomputed, cfg)
     origin, direction = px["origin"], px["direction"]
     flat_px, march_px = px["flat_px"], px["march_px"]
     batch = flat_px.shape
@@ -1305,7 +1335,7 @@ def render_fast(
         march = march_scene_diff if differentiable else march_scene
         fdir, fpos, status, slots, nhits = march(
             origin, direction, march_px, r_s, sc, cfg, n_slots=n_slots,
-            tex=tex if opaque_stop else None, test_ray=test_ray)
+            tex=tex if opaque_stop else None, test_ray=test_ray, mesh=mesh)
     else:
         fdir, fpos = direction, origin
         status = torch.full(batch, STATUS_ESCAPED, device=dev)

@@ -11,6 +11,7 @@ values would overflow int64, so :func:`_mul32` splits the constant into
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .config import RenderConfig, resolve_device
@@ -68,6 +69,47 @@ def tile_hash_rand(width, height, seed=0, tile=(8, 128), device=None):
     n_tx = -(-width // tw)
     h = (ty * n_tx + tx + _seed_term(seed)) & _M32
     return _lowbias32(h)
+
+
+def _lowbias32_np(h):
+    """The lowbias32 pipeline on uint32 numpy arrays (wrapping)."""
+    u32 = np.uint32
+    with np.errstate(over="ignore"):
+        h = h ^ (h >> u32(16))
+        h = h * u32(0x7FEB352D)
+        h = h ^ (h >> u32(15))
+        h = h * u32(0x846CA68B)
+        h = h ^ (h >> u32(16))
+    return h.astype(np.float32) * np.float32(_INV_2_32)
+
+
+def pixel_hash_rand_np(width, height, seed=0):
+    """Numpy twin of :func:`pixel_hash_rand`, bit-equal: the field on the
+    host, with no tensor made."""
+    u32 = np.uint32
+    y = np.broadcast_to(np.arange(height, dtype=np.int64)[:, None],
+                        (height, width)).astype(u32)
+    x = np.broadcast_to(np.arange(width, dtype=np.int64)[None, :],
+                        (height, width)).astype(u32)
+    with np.errstate(over="ignore"):
+        h = y * u32(width) + x + u32(_seed_term(seed))
+    return _lowbias32_np(h)
+
+
+def tile_hash_rand_np(width, height, seed=0, tile=(16, 128)):
+    """Numpy twin of :func:`tile_hash_rand`, bit-equal."""
+    u32 = np.uint32
+    th, tw = tile
+    ty = np.broadcast_to(
+        (np.arange(height, dtype=np.int64)[:, None] // th).astype(u32),
+        (height, width))
+    tx = np.broadcast_to(
+        (np.arange(width, dtype=np.int64)[None, :] // tw).astype(u32),
+        (height, width))
+    n_tx = u32(-(-width // tw))
+    with np.errstate(over="ignore"):
+        h = ty * n_tx + tx + u32(_seed_term(seed))
+    return _lowbias32_np(h)
 
 
 # Threefry-2x32 (Salmon et al. 2011), 20 rounds, as jax._src.prng's

@@ -1,12 +1,14 @@
-"""The native float64 oracle (``native/oracle.cpp``) for this package's
-scenes: the ctypes binding of the JAX package's ``oracle/native.py`` and
-its ``OracleScene``, kept here so that nothing imports jax.
+"""ctypes binding of the native C++ float64 oracle (``native/oracle.cpp``)
+for this package's scenes (counterpart of
+``schwarzschild_tpu.oracle.native``).
 
 ``native/oracle.cpp`` transcribes the reference's fragment shader in
-float64 with its real control flow, independently of either renderer;
-:func:`render_image` renders a frame with it.  The library is built with
-g++ at first use into ``_build/`` beside this file (plain C ABI, ctypes).
-The pure-Python oracle of the JAX package is not ported.
+float64 with its real control flow, independently of either renderer,
+with the semantics of the pure-Python oracle (``reference.py``) and some
+100x its speed.  :func:`render_image` renders a frame with it.  The
+library is built with g++ at first use into ``_build/`` of this package
+(plain C ABI, ctypes); ctypes releases the GIL during the call, so row
+slabs render on a thread pool.
 
 :func:`classify` and :func:`probe` are the parity method of the JAX
 package's benchmarks/parity_r05.py: a frame's disagreements with the
@@ -22,81 +24,21 @@ import hashlib
 import os
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-from ._ext import BUILD_DIR
-from .config import CURVED
-from .textures import Texture
+from .._ext import BUILD_DIR
+from .reference import CURVED, OracleScene  # noqa: F401  (public here too)
 
-_SOURCE = Path(__file__).resolve().parents[1] / "native" / "oracle.cpp"
+_SOURCE = Path(__file__).resolve().parents[2] / "native" / "oracle.cpp"
 
 
 def _f64(x):
     if hasattr(x, "detach"):
         x = x.detach().cpu().numpy()
     return np.asarray(x, np.float64)
-
-
-def _leaf(x):
-    """A scene table as numpy: float64 unless it holds ints or bools."""
-    a = x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
-    if a.dtype == np.bool_ or np.issubdtype(a.dtype, np.integer):
-        return a
-    return a.astype(np.float64)
-
-
-@dataclass
-class OracleScene:
-    """Float64 view of a scene and its textures."""
-
-    materials: dict
-    lights: dict
-    spheres: dict
-    planes: dict
-    disks: dict
-    hollow_disks: dict
-    cylinders: dict
-    rectangles: dict
-    boxes: dict
-    background: Optional[np.ndarray] = None  # (H, W, 4), row 0 = bottom
-    tex_data: Optional[np.ndarray] = None  # (T, Hmax, Wmax, 4)
-    tex_sizes: Optional[np.ndarray] = None  # (T, 2)
-    tex_max_size: Optional[np.ndarray] = None  # (2,)
-    r_s: float = 1.0
-
-    @classmethod
-    def from_scene(cls, sc, background=None, tex=None, r_s=1.0):
-        """From this package's ``Scene``, a background (a ``Texture`` or an
-        (H, W, 4) array) and a ``TextureStack``; every tensor to numpy."""
-
-        def d(soa):
-            return {k: _leaf(v) for k, v in soa._asdict().items()}
-
-        kwargs = dict(
-            materials=d(sc.materials),
-            lights=d(sc.lights),
-            spheres=d(sc.spheres),
-            planes=d(sc.planes),
-            disks=d(sc.disks),
-            hollow_disks=d(sc.hollow_disks),
-            cylinders=d(sc.cylinders),
-            rectangles=d(sc.rectangles),
-            boxes=d(sc.boxes),
-            r_s=float(r_s),
-        )
-        if background is not None:
-            if isinstance(background, Texture):
-                background = background.data
-            kwargs["background"] = _f64(background)
-        if tex is not None:
-            kwargs["tex_data"] = _f64(tex.data)
-            kwargs["tex_sizes"] = _f64(tex.sizes)
-            kwargs["tex_max_size"] = _f64(tex.max_size)
-        return cls(**kwargs)
 
 
 class _CScene(ct.Structure):
@@ -360,7 +302,12 @@ def render_image(osc: OracleScene, cam_pos, cam_axes, fov, width, height,
     """(height, width, 4) float64 frame of the native oracle; rows render
     in slabs on ``n_threads`` threads (ctypes releases the GIL).
     ``noise_mode`` "glsl" or "hash" (the oracle has no other); the debug
-    test ray is not drawn."""
+    test ray is not drawn: a scene with one raises NotImplementedError
+    (the Python oracle draws it)."""
+    if osc.test_ray_points is not None:
+        raise NotImplementedError(
+            "the native oracle does not draw the debug test ray; use "
+            "oracle.reference")
     if percent_black >= 0.0 and noise_mode not in ("glsl", "hash"):
         raise ValueError(f"the oracle has no noise_mode {noise_mode!r}")
     lib = _get_lib()

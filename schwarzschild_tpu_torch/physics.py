@@ -39,6 +39,34 @@ def rk4_step(u, du, delta_phi, r_s=1.0):
     )
 
 
+def orbital_plane(origin, direction):
+    """(normal_vec, tangent_vec) of the orbital plane through ``origin``
+    with tangent ``direction``: normalize(origin) and
+    normalize(cross(cross(n, dir), n)) (black_hole.frag:865, 883)."""
+    n = geo.normalize(origin)
+    t = geo.normalize(geo.cross(geo.cross(n, direction), n))
+    return n, t
+
+
+def initial_conditions(origin, direction, normal_vec, tangent_vec):
+    """Initial (u, du) of the Binet ODE (black_hole.frag:886-887)."""
+    u = 1.0 / geo.length(origin)
+    du = -u * geo.dot(direction, normal_vec) / geo.dot(direction, tangent_vec)
+    return u, du
+
+
+def step_size(phi, i, max_angle, max_steps):
+    """Uniform step in phi: the remaining angle over the remaining steps
+    (black_hole.frag:914)."""
+    return (max_angle - phi) / (max_steps - i)
+
+
+def reconstruct_position(phi, u, normal_vec, tangent_vec):
+    """Cartesian position of the polar state (black_hole.frag:925)."""
+    return (torch.cos(phi)[..., None] * normal_vec
+            + torch.sin(phi)[..., None] * tangent_vec) / u[..., None]
+
+
 def is_radial(direction, normal_vec, epsilon=geo.EPSILON):
     """Radial-trajectory degeneracy test (black_hole.frag:872,902)."""
     return torch.abs(geo.dot(direction, normal_vec)) >= 1.0 - epsilon

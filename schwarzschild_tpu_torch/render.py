@@ -140,15 +140,18 @@ def _march_step(state: MarchState, i: int, sc: Scene, cfg: RenderConfig,
 def render(sc: Scene, cam, cfg: RenderConfig, background: Texture,
            tex: Optional[TextureStack] = None, r_s=1.0,
            test_ray: Optional[TestRay] = None,
-           rows: Optional[tuple] = None) -> torch.Tensor:
+           rows=None, cols=None) -> torch.Tensor:
     """Render an (H, W, 4) RGBA image on the device of ``background``,
     differentiable in ``r_s``, the camera's tensors, the scene's tensors
     and the texels.
 
     ``rows=(r0, r1)`` renders only image rows [r0, r1) of the full
-    cfg.height frame, equal to ``render(...)[r0:r1]`` (the NDC grid and
-    the noise fields are built at full size and sliced); strips bound the
-    peak memory of a large frame.  ``test_ray`` draws the debug tubes.
+    cfg.height frame, equal to ``render(...)[r0:r1]`` (the grid quantities
+    are built at full size and then selected); strips bound the peak
+    memory of a large frame.  ``cols`` likewise selects columns; each of
+    ``rows`` and ``cols`` may also be a range or an integer index tensor
+    (a tile of a sharded frame, see ``sharding.make_tile_render``).
+    ``test_ray`` draws the debug tubes.
     ``cfg.checkpoint_every`` (dividing ``max_steps``) runs the march in
     chunks under ``torch.utils.checkpoint``, which saves only each
     chunk's input state for the backward; the image is the same.
@@ -158,20 +161,22 @@ def render(sc: Scene, cam, cfg: RenderConfig, background: Texture,
     frame's grid; with ``rows=`` that grid is the strip, so the LOD of a
     strip's first and last rows takes the strip's wrapped neighbours
     (``torch.roll``), as the JAX package's does, and can differ from the
-    whole frame's there."""
+    whole frame's there (a selection with a one-pixel halo, cropped
+    after, gives the whole frame's)."""
     dev = background.data.device
     r_s = torch.as_tensor(r_s, dtype=torch.float32, device=dev)
-    state, ctx = _prepare(sc, cam, cfg, background, tex, r_s, rows=rows)
+    state, ctx = _prepare(sc, cam, cfg, background, tex, r_s, rows=rows,
+                          cols=cols)
     if cfg.raytrace_type != FLAT:
         state = _run_march(state, sc, cfg, r_s, ctx.tex, test_ray)
     return _finalize(state, ctx, sc, cfg, r_s, test_ray)
 
 
-def _prepare(sc, cam, cfg, background, tex, r_s, rows=None):
+def _prepare(sc, cam, cfg, background, tex, r_s, rows=None, cols=None):
     """Rays, dispatch masks and the initial march state (frag:850-887),
     with kernel.py's pixel setup and orbital-plane init; the mips of a
     trilinear frame."""
-    px = pixel_setup(cam, cfg, background.data.device, rows=rows)
+    px = pixel_setup(cam, cfg, background.data.device, rows=rows, cols=cols)
     if cfg.texture_filter == "trilinear":
         background, tex = ensure_mips(background, tex)
     origin, direction = px["origin"], px["direction"]

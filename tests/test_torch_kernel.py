@@ -143,16 +143,29 @@ def test_render_horizon_sky_matches_pallas(sky_frame):
     frame_close(ref, got.numpy())
 
 
-def test_render_horizon_sky_rejects_unported_options():
+def test_render_horizon_sky_rejects_unported_options(tmp_path):
+    """Every option of the JAX package's render_horizon_sky is ported now:
+    differentiable= gives the same frame with a graph, and mesh= (here a
+    one-rank gloo group's mesh) the same frame, marched tile by tile
+    (tests/test_torch_sharding.py holds it on four ranks)."""
+    import torch.distributed as dist
+
+    from schwarzschild_tpu_torch import sharding
+
     cfg = st.RenderConfig(width=8, height=8)
     cam, bg = jconfigs.demo_camera(), jconfigs.background_texture()
     args = (convert.camera(_np(cam), device="cpu"), convert.render_config(cfg),
             convert.texture(_np(bg), device="cpu"))
-    with pytest.raises(NotImplementedError):
-        tkernel.render_horizon_sky(*args, mesh=object())
-    # differentiable= is ported: the same frame, now with a graph.
     img = tkernel.render_horizon_sky(*args, differentiable=True)
     assert torch.equal(img, tkernel.render_horizon_sky(*args))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        meshed = tkernel.render_horizon_sky(*args,
+                                            mesh=sharding.make_mesh())
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(meshed, img)
 
 
 @pytest.mark.parametrize("seed,shape", [(0, (8, 8)), (7, (13, 5)),

@@ -185,10 +185,39 @@ def test_render_fast_overflow_modes(demo):
 
 @pytest.mark.parametrize("option", ["test_ray", "mesh", "differentiable",
                                     "precomputed", "compact_slots", "atlas"])
-def test_render_fast_rejects_unported_options(demo, option):
+def test_render_fast_rejects_unported_options(demo, option, tmp_path):
     _, t = demo
     cfg = sp.RenderConfig(width=8, height=8, percent_black=-1.0)
     args = (t["scene"], t["cam"], cfg, t["bg"], t["tex"])
+    if option == "precomputed":
+        # Ported since: the frame's own grid quantities give the frame,
+        # and a tile of them (rows 2-5, columns 1-6) the frame's tile.
+        from schwarzschild_tpu_torch import kernel
+
+        planes = kernel.grid_planes(t["cam"], cfg, "cpu")
+        img = tks.render_fast(*args)
+        assert torch.equal(tks.render_fast(t["scene"], None, *args[2:],
+                                           precomputed=planes), img)
+        part = kernel.take_pixels(planes, (2, 5), (1, 6))
+        assert torch.equal(tks.render_fast(t["scene"], None, *args[2:],
+                                           precomputed=part), img[2:5, 1:6])
+        return
+    if option == "mesh":
+        # Ported since: a one-rank gloo group's mesh gives the same frame
+        # (tests/test_torch_sharding.py holds it on four ranks).
+        import torch.distributed as dist
+
+        from schwarzschild_tpu_torch import sharding
+
+        dist.init_process_group("gloo",
+                                init_method=f"file://{tmp_path}/store",
+                                world_size=1, rank=0)
+        try:
+            img = tks.render_fast(*args, mesh=sharding.make_mesh())
+        finally:
+            dist.destroy_process_group()
+        assert torch.equal(img, tks.render_fast(*args))
+        return
     if option == "differentiable":
         # Ported since: the same frame, now with a graph.
         assert torch.equal(tks.render_fast(*args, differentiable=True),

@@ -1,4 +1,4 @@
-"""The port's binding of the native float64 oracle (``oracle.py``) held
+"""The port's binding of the native float64 oracle (``oracle/native.py``) held
 against the JAX package's (the same scene tables and frames), the port's
 plain frames against the oracle at 32 x 24 (tests/test_native_oracle.py's
 golden rule: at least 99.5% of pixels within 2e-3, median under 5e-4), and
@@ -18,7 +18,8 @@ from schwarzschild_tpu import configs as jconfigs
 from schwarzschild_tpu.oracle import OracleScene as JOracleScene
 from schwarzschild_tpu.oracle import native as jnative
 from schwarzschild_tpu_torch import configs as tconfigs
-from schwarzschild_tpu_torch import convert, oracle
+from schwarzschild_tpu_torch import convert
+from schwarzschild_tpu_torch.oracle import native as oracle
 
 
 def _np(tree):

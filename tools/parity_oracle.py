@@ -5,8 +5,8 @@
 The method of benchmarks/parity_r05.py, on this package alone (no JAX):
 configs 2 (horizon + sky, 512 x 512) and 3 (the planets scene, 1024 x
 1024) at full size, percent_black -1, each rendered by the native oracle
-(``native/oracle.cpp`` through ``schwarzschild_tpu_torch.oracle``) and by
-the port's renderers: ``render_horizon_sky`` (config 2), ``render_fast``
+(``native/oracle.cpp`` through ``schwarzschild_tpu_torch.oracle.native``)
+and by the port's renderers: ``render_horizon_sky`` (config 2), ``render_fast``
 and the dense ``render`` (in strips of rows).  On the card the frames run
 through the CUDA kernels; on the CPU through their plain versions, which
 equal the kernels bit for bit.
@@ -39,7 +39,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from schwarzschild_tpu_torch.oracle import (  # noqa: E402
+from schwarzschild_tpu_torch.oracle.native import (  # noqa: E402
     CONTRAST,
     DISPLAY_COUNT,
     TOL,
@@ -101,7 +101,7 @@ def card_line():
 
 
 def run_config(name, conf, device):
-    from schwarzschild_tpu_torch import oracle
+    from schwarzschild_tpu_torch.oracle import native as oracle
 
     cam, cfg = conf["camera"], conf["cfg"]
     t0 = time.perf_counter()
