@@ -113,7 +113,23 @@ Phases, one printed line each (any failure raises, so the exit code is not
      pixels (every 16th row at 1280x720); median steady frame time and
      the ansi_frame encode time;
  19. examples: examples/render_configs_torch.py, configs 1-4 with --fast
-     --scale 0.5: the PNGs written and the seconds a config.
+     --scale 0.5: the PNGs written and the seconds a config;
+ 20. atlas: the demo's fetch atlas (build time, bytes) and one
+     atlas_fetch a lane at 1280x720 lanes of mixed layers, equal to
+     sample_stack/sample_texture, beside their time; the demo frame at
+     1280x720 with compact_slots "auto", None and (None, 16, 16, 16),
+     bit-equal, their times and host synchronizations beside the
+     trilinear frame's per-slot loop; the reference's default
+     (percent_black 0.75, hash noise) through the lane-sparse branch and
+     tile noise (16, 128) through the tile-sparse one, each within 1e-6 of
+     its compact_slots=None frame with one march launch, and at 512x128 /
+     256x128 within the frame rule of the CPU's; march_scene on those
+     rays and march_bh on config 2 at 512x512 under the same mask, with
+     and without compact=True, bit-equal on active rays, device times;
+     bfloat16 textures against float32 ones (within one count on 98% of
+     channels); the 720p gradient frame with frozen texels and with the
+     background's texels (finite, one adjoint launch, time, peak memory)
+     and both against the CPU's at 64x36 by the gradient rule.
 Then one JSON line of per-kernel results, the card line again, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -1521,6 +1537,250 @@ def examples_phase(reset_launches, read_launches, configs_=(1, 2, 3, 4),
             f"render_configs launched {launches}")
 
 
+def count_syncs(fn):
+    """Host synchronizations in one call of ``fn`` (after a warm-up call):
+    the warnings that torch.cuda.set_sync_debug_mode("warn") raises, one
+    for each synchronizing CUDA call."""
+    import warnings
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def in_turns(fns, rounds=4):
+    """{name: [cuda_ms, ...]} of each function of ``fns`` (a dict), timed
+    in turns (A, B, then B, A, ...): the host's noise drifts within a
+    call, so two paths compare only side by side."""
+    order = list(fns)
+    times = {name: [] for name in order}
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            times[name].append(cuda_ms(fns[name]))
+    return times
+
+
+def atlas_phase(sc, cam, bg, tex, c2, reset_launches, read_launches,
+                size=(1280, 720), bh_size=512,
+                small=dict(lane=(512, 128), tile=(256, 128))):
+    """Phase 20 (see the module's docstring): the fetch atlas, the
+    composition's compacted levels, the lane- and tile-sparse frames, the
+    compacted marches, bfloat16 textures and the atlas gradient frames on
+    the card, each checked and timed."""
+    import torch
+
+    import schwarzschild_tpu_torch as sp
+    from schwarzschild_tpu_torch import configs, kernel, kernel_scene, noise
+    from schwarzschild_tpu_torch import textures
+
+    t_phase = time.perf_counter()
+    W, H = size
+    dev = bg.data.device
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+
+    # The atlas: build time and bytes, and one fetch a lane against the
+    # two samplers it replaces, at W x H lanes of mixed layers.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    atlas = textures.build_atlas(bg, tex)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = textures.atlas_nbytes(bg, tex)
+    require(nbytes == atlas.data.numel() * atlas.data.element_size(),
+            "atlas_nbytes differs from the atlas built")
+    n = W * H
+    u = torch.rand(n, generator=gen).to(dev)
+    v = torch.rand(n, generator=gen).to(dev)
+    layer = torch.randint(0, tex.data.shape[0] + 1, (n,),
+                          generator=gen).to(dev)
+
+    def fetch():
+        return textures.atlas_fetch(atlas, layer, u, v)
+
+    def samplers():
+        return (textures.sample_stack(tex, layer - 1, u, v),
+                textures.sample_texture(bg, u, v))
+
+    st_, bg_ = samplers()
+    require(torch.equal(fetch(), torch.where((layer == 0)[:, None], bg_,
+                                             st_)),
+            "atlas_fetch differs from sample_texture/sample_stack")
+    fetch_prof = profile_device(fetch, host=False)
+    samplers_prof = profile_device(samplers, host=False)
+    log("atlas", bytes=nbytes, build_ms=build_ms, lanes=n,
+        layers=int(atlas.wrap.shape[0]), fetch_equals_samplers=True,
+        atlas_fetch_ms=cuda_ms(fetch), atlas_fetch_device_ms=fetch_prof,
+        samplers_ms=cuda_ms(samplers),
+        sample_stack_and_sample_texture_device_ms=samplers_prof)
+
+    # The demo frame through the atlas levels: compacted ("auto", per-pass
+    # capacities) and full-frame levels bit-equal on the card.
+    cfg = sp.RenderConfig(width=W, height=H, percent_black=-1.0)
+    frames = {name: sp.render_fast(sc, cam, cfg, bg, tex, 1.0,
+                                   compact_slots=value)
+              for name, value in (("auto", "auto"), ("none", None),
+                                  ("capacities", (None, 16, 16, 16)))}
+    require(all(torch.equal(f, frames["none"]) for f in frames.values()),
+            "compacted levels differ from full-frame levels on the card")
+    tri_cfg = sp.RenderConfig(width=W, height=H, percent_black=-1.0,
+                              texture_filter="trilinear")
+
+    def frame(c, **kw):
+        return lambda: sp.render_fast(sc, cam, c, bg, tex, 1.0, **kw)
+
+    log("atlas_frames", shape=[H, W], bit_equal=True,
+        ms_in_turns=in_turns(dict(
+            auto=frame(cfg), none=frame(cfg, compact_slots=None),
+            trilinear_per_slot_loop=frame(tri_cfg))),
+        syncs=dict(auto=count_syncs(frame(cfg)),
+                   none=count_syncs(frame(cfg, compact_slots=None)),
+                   trilinear_per_slot_loop=count_syncs(frame(tri_cfg))),
+        profiled_auto=profile_device(frame(cfg)),
+        profiled_none=profile_device(frame(cfg, compact_slots=None)))
+
+    # The reference's default (percent_black 0.75, hash noise) through the
+    # lane-sparse branch, and tile noise (16, 128) through the tile-sparse
+    # one: each within 1e-6 of its compact_slots=None frame, one launch.
+    sparse = {}
+    for kind, extra in (("lane", dict(noise_mode="hash")),
+                        ("tile", dict(noise_mode="tile",
+                                      noise_tile=(16, 128)))):
+        scfg = sp.RenderConfig(width=W, height=H, percent_black=0.75, **extra)
+        reset_launches()
+        img = frame(scfg)()
+        launches = read_launches()
+        full = frame(scfg, compact_slots=None)()
+        err = (img - full).abs().max().item()
+        require(err <= 1e-6, f"{kind}-sparse frame vs full: {err}")
+        require(launches["march_scene"] == 1,
+                f"{kind}-sparse frame launches {launches}")
+        w_, h_ = small[kind]
+        c_small = sp.RenderConfig(width=w_, height=h_, percent_black=0.75,
+                                  **extra)
+        share = within(frame(c_small)(), sp.render_fast(
+            configs.demo_scene(device=cpu), configs.demo_camera(device=cpu),
+            c_small, configs.background_texture(device=cpu),
+            configs.demo_texture_stack(device=cpu), 1.0))
+        require(share >= 0.995, f"{kind}-sparse {w_}x{h_} vs CPU {share}")
+        sparse[kind] = dict(
+            max_abs_err_vs_full=err, launches=launches,
+            ms_in_turns=in_turns(dict(
+                sparse=frame(scfg), full_frame=frame(scfg,
+                                                     compact_slots=None))),
+            device=profile_device(frame(scfg)),
+            full_frame_device=profile_device(frame(scfg, compact_slots=None)),
+            syncs=count_syncs(frame(scfg)),
+            full_frame_syncs=count_syncs(frame(scfg, compact_slots=None)),
+            vs_cpu=dict(shape=[h_, w_], within_2e_3=share))
+    log("sparse_frames", shape=[H, W], percent_black=0.75, **sparse)
+
+    # The compacted marches on the same 0.75 hash mask: bit-equal on every
+    # active ray, one launch a call, device time beside the unpacked one.
+    def compact_check(name, run, mask):
+        a = run(False)
+        b = run(True)
+        leaves_a, leaves_b = [], []
+        for out, leaves in ((a, leaves_a), (b, leaves_b)):
+            stack = [out]
+            while stack:
+                x = stack.pop()
+                if isinstance(x, (list, tuple)):
+                    stack.extend(x)
+                else:
+                    leaves.append(x)
+        equal = all(torch.equal(x[mask], y[mask]) for x, y in
+                    zip(leaves_a, leaves_b))
+        require(equal, f"{name}(compact=True) differs on active rays")
+        kname = f"{name}_kernel"
+        return dict(bit_equal_on_active=equal,
+                    active_share=mask.float().mean().item(),
+                    device_ms=device_ms(lambda: run(False), kname),
+                    compact_device_ms=device_ms(lambda: run(True), kname),
+                    ms=cuda_ms(lambda: run(False)),
+                    compact_ms=cuda_ms(lambda: run(True)))
+
+    o, d, act = rays(cam, W, H, dev)
+    mask = act & (noise.pixel_hash_rand(W, H, 0, device=dev) > 0.75)
+    scene = compact_check("march_scene", lambda c: kernel_scene.march_scene(
+        o, d, mask, 1.0, sc, cfg, 4, tex, compact=c), mask)
+    o2, d2, act2 = rays(c2["camera"], bh_size, bh_size, dev)
+    mask2 = act2 & (noise.pixel_hash_rand(bh_size, bh_size, 0, device=dev)
+                    > 0.75)
+    bh = compact_check("march_bh", lambda c: kernel.march_bh(
+        o2, d2, mask2, 1.0, c2["cfg"], compact=c), mask2)
+    reset_launches()
+    kernel_scene.march_scene(o, d, mask, 1.0, sc, cfg, 4, tex, compact=True)
+    kernel.march_bh(o2, d2, mask2, 1.0, c2["cfg"], compact=True)
+    compact_launches = read_launches()
+    require(compact_launches["march_scene"] == 1
+            and compact_launches["march_bh"] == 1,
+            f"compacted marches launched {compact_launches}")
+    log("compact_march", march_scene=dict(shape=[H, W], **scene),
+        march_bh=dict(shape=[bh_size, bh_size], **bh),
+        launches=compact_launches)
+
+    # bfloat16 texels against float32 ones.
+    bg16, tex16 = sp.with_dtype(bg), sp.stack_with_dtype(tex)
+    f16 = sp.render_fast(sc, cam, cfg, bg16, tex16, 1.0)
+    share16 = ((f16 - frames["auto"]).abs() < 1 / 255).float().mean().item()
+    require(share16 > 0.98, f"bf16 frame within a count on {share16}")
+    log("bf16_frame", shape=[H, W], within_one_count=share16,
+        ms=cuda_ms(lambda: sp.render_fast(sc, cam, cfg, bg16, tex16, 1.0)),
+        atlas_bytes_bf16=textures.atlas_nbytes(bg, tex, torch.bfloat16))
+
+    # The gradient frame through the atlas: frozen texels (r_s, cam.pos),
+    # then the background's texels too (a differentiable atlas).
+    w = torch.rand((H, W, 4), generator=gen).to(dev)
+
+    def grad(cfg_, w_, scene, camera, back, stack, texels):
+        pos = camera.pos.clone().requires_grad_(True)
+        r_s = torch.tensor(1.0, device=w_.device, requires_grad=True)
+        if texels:
+            back = sp.Texture(back.data.clone().requires_grad_(True))
+        img = sp.render_fast(scene, camera._replace(pos=pos), cfg_, back,
+                             stack, r_s, overflow="ignore",
+                             differentiable=True)
+        wrt = [r_s, pos] + ([back.data] if texels else [])
+        return torch.autograd.grad((img * w_).sum(), wrt)
+
+    small_cfg = sp.RenderConfig(width=64, height=36, percent_black=-1.0)
+    ws = torch.rand((36, 64, 4), generator=gen)
+    grads = {}
+    for texels in (False, True):
+        key = "texels" if texels else "frozen"
+        reset_launches()
+        g, peak = peak_bytes(lambda: grad(cfg, w, sc, cam, bg, tex, texels))
+        launches = read_launches()
+        require(all(bool(torch.isfinite(x).all()) for x in g),
+                f"non-finite {key} gradient")
+        require(launches["march_scene_bwd"] == 1, f"{key} launches {launches}")
+        gg = grad(small_cfg, ws.to(dev), sc, cam, bg, tex, texels)
+        gc = grad(small_cfg, ws, configs.demo_scene(device=cpu),
+                  configs.demo_camera(device=cpu),
+                  configs.background_texture(device=cpu),
+                  configs.demo_texture_stack(device=cpu), texels)
+        ok = [grads_close(a, b) for a, b in zip(gg, gc)]
+        require(all(ok), f"{key} gradients vs CPU {ok}")
+        grads[key] = dict(peak_bytes=peak, launches=launches,
+                          vs_cpu_64x36=ok, grad_r_s=g[0].item())
+    log("atlas_gradient_frames", shape=[H, W], **grads,
+        ms_in_turns=in_turns({key: (lambda t=t: grad(cfg, w, sc, cam, bg,
+                                                      tex, t))
+                              for key, t in (("frozen", False),
+                                             ("texels", True))}),
+        seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
 
@@ -1911,6 +2171,10 @@ def main() -> int:
     sharded_phase(sc, cam, bg, tex, c2, reset_launches, read_launches)
     viewer_phase(dev, cpu, reset_launches, read_launches)
     examples_phase(reset_launches, read_launches)
+
+    # 20. the fetch atlas, compacted levels, sparse frames, compacted
+    # marches, bfloat16 textures, the atlas gradient frames
+    atlas_phase(sc, cam, bg, tex, c2, reset_launches, read_launches)
 
     log("total", seconds=time.perf_counter() - t_start)
     src = "schwarzschild_tpu_torch/csrc/march.cu"

@@ -34,9 +34,12 @@ import torch  # noqa: E402
 import schwarzschild_tpu_torch as sp  # noqa: E402
 from schwarzschild_tpu_torch import configs, viewer  # noqa: E402
 from schwarzschild_tpu_torch.camera import Camera  # noqa: E402
+from schwarzschild_tpu_torch.compile_cache import (  # noqa: E402
+    enable_persistent_cache)
 from schwarzschild_tpu_torch.features import calculate_test_ray  # noqa: E402
 from schwarzschild_tpu_torch.kernel_scene import render_fast  # noqa: E402
 from schwarzschild_tpu_torch.render import to_uint8  # noqa: E402
+from schwarzschild_tpu_torch.textures import build_atlas_cached  # noqa: E402
 
 
 def make_renderer(conf, width, height, device="cuda"):
@@ -48,6 +51,7 @@ def make_renderer(conf, width, height, device="cuda"):
     recomputes it on each press (main.cpp:94-124)."""
     device = torch.device(device)
     sc, bg, tex = conf["scene"], conf["background"], conf["tex"]
+    atlas = build_atlas_cached(bg, tex)  # once: every frame fetches from it
     tray_holder = {"tray": None, "on": False}
     cfgs = {}
 
@@ -61,7 +65,7 @@ def make_renderer(conf, width, height, device="cuda"):
         cam = Camera(*(x.to(device) for x in state.cam))
         img = render_fast(sc, cam, cfg, bg, tex, 1.0, overflow="ignore",
                           test_ray=tray_holder["tray"] if state.test_ray
-                          else None)
+                          else None, atlas=atlas)
         return to_uint8(img).cpu().numpy()
 
     return frame
@@ -145,6 +149,7 @@ def main(argv=None):
     ap.add_argument("--artifact", help="write frame timings to this JSON")
     args = ap.parse_args(argv)
 
+    enable_persistent_cache()
     dev = args.device
     if args.config == 3:
         conf = configs.config3_full_scene(device=dev)

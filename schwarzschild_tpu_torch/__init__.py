@@ -40,7 +40,9 @@ from .textures import (
     load_texture_array,
     solid_color_texture,
     stack_textures,
+    stack_with_dtype,
     stack_with_mips,
+    with_dtype,
     with_mips,
 )
 from .kernel import render_horizon_sky

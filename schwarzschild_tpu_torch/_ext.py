@@ -3,8 +3,9 @@
 The sources compile with ``nvcc`` into a shared library with a plain C
 interface, loaded with ctypes: no PyTorch headers, so the build takes
 seconds.  The library is built at first use into ``_build/`` beside this
-file, under a name derived from the sources and flags, so an edited source
-is rebuilt and a built one is reused.  Nothing here runs at import.
+file (``compile_cache.enable_persistent_cache`` names another directory),
+under a name derived from the sources and flags, so an edited source is
+rebuilt and a built one is reused.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -22,7 +23,10 @@ from typing import NamedTuple
 import torch
 
 CSRC = Path(__file__).parent / "csrc"
-BUILD_DIR = Path(__file__).parent / "_build"
+DEFAULT_BUILD_DIR = Path(__file__).parent / "_build"
+# Where build() writes and looks up the library
+# (compile_cache.enable_persistent_cache moves it).
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 # The kernels' compile-time design, passed to nvcc as -D macros: csrc/
 # reads them from there, the wrappers and reports from here.  The scene

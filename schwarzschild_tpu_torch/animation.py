@@ -33,6 +33,7 @@ from .kernel_scene import render_fast
 from .metrics import FrameTimer, MetricsLogger
 from .render import encode_png, render, to_uint8
 from .sharding import frame_range_for_process
+from .textures import build_atlas_cached
 
 
 def _to_host(img):
@@ -93,7 +94,8 @@ def render_trajectory(
 
     ``renderer="jnp"`` (the default, as in the JAX package) renders each
     frame with the dense renderer :func:`render.render`, ``"fast"`` with
-    :func:`render_fast` (``overflow="ignore"``).
+    :func:`render_fast` (``overflow="ignore"``) and the fetch atlas of
+    (background, tex), built once here and passed to every frame.
 
     With ``out_dir`` frames are quantized on the device (:func:`to_uint8`),
     so 3 bytes a pixel cross to the host, and written as
@@ -130,12 +132,15 @@ def render_trajectory(
         return cam_mod.hyperbolic_trajectory(
             base_cam, initial_distance, closest_distance, float(times[idx]))
 
+    atlas = (build_atlas_cached(background, tex) if renderer == "fast"
+             else None)
+
     def render_one(cam):
         if renderer == "jnp":
             img = render(sc, cam, cfg, background, tex, r_s)
         else:
             img = render_fast(sc, cam, cfg, background, tex, r_s,
-                              overflow="ignore")
+                              overflow="ignore", atlas=atlas)
         return to_uint8(img) if quantize else img
 
     frame_ids = (range(len(times)) if all_frames_local

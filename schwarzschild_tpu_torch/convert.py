@@ -31,14 +31,18 @@ from .scene import (
     Scene,
     SpheresSoA,
 )
-from .textures import Texture, TextureStack
+from .textures import FetchAtlas, Texture, TextureStack
 
 _SCENE_PARTS = (MaterialsSoA, LightsSoA, SpheresSoA, PlanesSoA, DisksSoA,
                 HollowDisksSoA, CylindersSoA, RectanglesSoA, BoxesSoA)
 
 
 def _tensor(x, device):
-    return torch.from_numpy(np.array(x)).to(resolve_device(device))
+    x = np.array(x)
+    if x.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own
+        return torch.from_numpy(x.astype(np.float32)).to(
+            resolve_device(device), torch.bfloat16)
+    return torch.from_numpy(x).to(resolve_device(device))
 
 
 def _fields(cls, src, device):
@@ -83,6 +87,12 @@ def texture(src, device=None) -> Texture:
 
 def texture_stack(src, device=None) -> TextureStack:
     return _with_mip_levels(TextureStack, src, device)
+
+
+def fetch_atlas(src, device=None) -> FetchAtlas:
+    """A JAX ``textures.FetchAtlas`` (data (G, 128) float32 or bfloat16,
+    wrap, base, gpr) as this package's: the same storage, copied."""
+    return _fields(FetchAtlas, src, device)
 
 
 def render_config(src) -> RenderConfig:

@@ -19,8 +19,9 @@ gradient entries (and count them), clip by global norm, then Adam, with an
 optional cosine-decay schedule.  Checkpoints are ``torch.save`` files
 ``<dir>/step_<N>.pt``.
 
-The fetch atlas (``pass_atlas``) of the JAX package is not part of this
-package (ROADMAP.md queue 1).
+``make_loss(pass_atlas=True)`` takes the fetch atlas as an argument of the
+loss, built once by the caller (``textures.build_atlas_cached``) and
+carried through ``make_train_step``'s extra arguments.
 """
 
 from __future__ import annotations
@@ -102,9 +103,10 @@ def _renderer(name: str):
     if name == "jnp":
         return render
     if name == "fast":
-        def fast(sc, cam, cfg, background, tex, r_s):
+        def fast(sc, cam, cfg, background, tex, r_s, atlas=None):
             return render_fast(sc, cam, cfg, background, tex, r_s,
-                               overflow="ignore", differentiable=True)
+                               overflow="ignore", differentiable=True,
+                               atlas=atlas)
 
         return fast
     raise ValueError(f"unknown renderer {name!r}")
@@ -125,19 +127,31 @@ def make_loss(sc, cfg, background, tex: Optional[TextureStack],
 
     ``renderer="jnp"`` renders with the dense differentiable renderer
     (``render.render``), ``"fast"`` with ``render_fast(differentiable=True)``.
-    ``pass_atlas`` (the JAX package's prebuilt fetch atlas) is not ported
-    and raises NotImplementedError."""
-    if pass_atlas:
-        raise NotImplementedError(
-            "pass_atlas: the fetch atlas is not part of "
-            "schwarzschild_tpu_torch (ROADMAP.md queue 1)")
+    ``pass_atlas`` ("fast" only): the loss is ``loss_fn(params, atlas)``,
+    the fetch atlas (``textures.build_atlas_cached(background, tex)``)
+    built once by the caller and passed to every step
+    (``make_train_step``'s extra arguments); the texels are then
+    constants, so it needs ``disk_slot=None``."""
+    if pass_atlas and renderer == "fast" and disk_slot is not None:
+        raise ValueError(
+            "pass_atlas requires disk_slot=None: optimizing texels needs "
+            "the atlas rebuilt from the optimized stack each step")
+    if pass_atlas and renderer == "jnp":
+        raise ValueError("pass_atlas only applies to renderer='fast'")
     render_any = _renderer(renderer)
     target = _image(target, background.data.device)
 
-    def loss_fn(params: InverseParams):
-        cam, r_s, tex_p = realize(params, tex, disk_slot)
-        img = render_any(sc, cam, cfg, background, tex_p, r_s)
-        return torch.mean((img - target) ** 2)
+    if pass_atlas:
+        def loss_fn(params: InverseParams, atlas):
+            cam, r_s, tex_p = realize(params, tex, disk_slot)
+            img = render_any(sc, cam, cfg, background, tex_p, r_s,
+                             atlas=atlas)
+            return torch.mean((img - target) ** 2)
+    else:
+        def loss_fn(params: InverseParams):
+            cam, r_s, tex_p = realize(params, tex, disk_slot)
+            img = render_any(sc, cam, cfg, background, tex_p, r_s)
+            return torch.mean((img - target) ** 2)
 
     return loss_fn
 

@@ -21,6 +21,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from . import _ext
 from . import camera as cam_mod
@@ -218,6 +219,10 @@ def march_bh_torch(origin, direction, active, r_s, cfg: RenderConfig,
     return out
 
 
+# The JAX package's name for its plain twin of the march.
+march_bh_jnp = march_bh_torch
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrapper.
 # ---------------------------------------------------------------------------
@@ -245,8 +250,39 @@ def check_rays(origin, direction, active):
         raise ValueError(f"unsupported device {origin.device}")
 
 
+def compact_march(march_fn, origin, direction, active):
+    """Run ``march_fn(origin, direction, active)`` with the active rays
+    packed into the leading lanes: a stable permutation from two cumsums
+    (actives in order, then the rest), so a sparse mask leaves whole warp
+    tiles idle instead of every tile partly live.  Per ray the results are
+    bit-identical; only the layout the kernel sees changes.  Differentiable
+    (the permutation is an index_copy and an index_select).
+
+    ``origin``/``direction`` (H, W, 3), ``active`` (H, W); ``march_fn``
+    returns a nest of (H, W[, ...]) planes, unpacked back to the image's
+    order."""
+    n = active.numel()
+    a = active.reshape(n)
+    ai = a.to(torch.int64)
+    pos = torch.where(a, torch.cumsum(ai, 0) - 1,
+                      ai.sum() + torch.cumsum(1 - ai, 0) - 1)
+
+    def pack(x):
+        flat = x.reshape((n,) + x.shape[active.dim():])
+        return flat.new_zeros(flat.shape).index_copy(0, pos, flat).reshape(
+            x.shape)
+
+    def unpack(x):
+        flat = x.reshape((n,) + x.shape[active.dim():])
+        return flat.index_select(0, pos).reshape(x.shape)
+
+    out = march_fn(pack(origin), pack(direction), pack(active))
+    return tree_map(unpack, out)
+
+
 def march_bh(origin, direction, active, r_s, cfg: RenderConfig,
-             events: bool = False, count_steps: bool = False, mesh=None):
+             events: bool = False, count_steps: bool = False, mesh=None,
+             compact: bool = False):
     """Horizon + sky march of (..., 3) rays: (final_dir (..., 3), status
     (...,) float32 in {1 captured, 2 escaped}).
 
@@ -262,15 +298,24 @@ def march_bh(origin, direction, active, r_s, cfg: RenderConfig,
     ``march_bh.launches``); a CPU tensor runs :func:`march_bh_torch`.
     ``mesh`` (a ``DeviceMesh``, see ``sharding.make_mesh``) marches this
     rank's tile of the (H, W) rays, one launch, and returns the full
-    planes on every rank (``sharding.shard_march``)."""
+    planes on every rank (``sharding.shard_march``).  ``compact=True``
+    packs the active rays into the leading lanes first
+    (:func:`compact_march`; under a mesh, within each tile); it takes no
+    ``events`` or ``count_steps``."""
+    if (events or count_steps) and compact:
+        raise ValueError("events and count_steps: non-compact marches only")
     if mesh is not None:
         if count_steps:
             raise ValueError("count_steps: a march on one device only")
         from .sharding import shard_march
 
         return shard_march(mesh, functools.partial(
-            march_bh, cfg=cfg, events=events))(origin, direction, active,
-                                               r_s)
+            march_bh, cfg=cfg, events=events, compact=compact))(
+                origin, direction, active, r_s)
+    if compact:
+        return compact_march(
+            lambda o, d, a: march_bh(o, d, a, r_s, cfg), origin, direction,
+            active)
     check_rays(origin, direction, active)
     want = events or count_steps
     if origin.device.type == "cpu":
@@ -341,18 +386,24 @@ class _MarchBhDiff(torch.autograd.Function):
 
 
 def march_bh_diff(origin, direction, active, r_s, cfg: RenderConfig,
-                  mesh=None):
+                  mesh=None, compact: bool = False):
     """Differentiable :func:`march_bh`: (final_dir, status), with gradients
     to origin, direction and r_s at the decisions the forward took.  The
     JAX package takes its backward from jax.vjp of a jnp replay of the
     whole march; here it is the adjoint kernel (``march_scene_bwd``), the
-    same fixed-decision gradient.  ``mesh`` as :func:`march_bh`'s: each
-    rank's adjoint runs on its own tile."""
+    same fixed-decision gradient.  ``mesh`` and ``compact`` as
+    :func:`march_bh`'s: each rank's adjoint runs on its own tile, and a
+    compacted march's on the packed rays."""
     if mesh is not None:
         from .sharding import shard_march
 
-        return shard_march(mesh, functools.partial(march_bh_diff, cfg=cfg))(
-            origin, direction, active, r_s)
+        return shard_march(mesh, functools.partial(
+            march_bh_diff, cfg=cfg, compact=compact))(origin, direction,
+                                                      active, r_s)
+    if compact:
+        return compact_march(
+            lambda o, d, a: march_bh_diff(o, d, a, r_s, cfg), origin,
+            direction, active)
     r_s = _f32(r_s, origin.device)
     return _MarchBhDiff.apply(origin, direction, r_s, active, cfg)
 
@@ -468,15 +519,6 @@ def soft_shadow_alphas(origin, direction, normal_vec0, flat_pos, flat_dir,
     b_flat = geo.safe_length(geo.cross(flat_pos, flat_dir))
     return (torch.sigmoid((b_crit - b_geo) / s_soft),
             torch.sigmoid((r_s - b_flat) / s_soft))
-
-
-def reject_unported(**options):
-    """Raise NotImplementedError for options of the JAX package's renderers
-    that this package does not have (each is listed in ROADMAP.md)."""
-    for name, value in options.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{name}= is not available in schwarzschild_tpu_torch")
 
 
 def render_horizon_sky(cam, cfg: RenderConfig, background: Texture, r_s=1.0,

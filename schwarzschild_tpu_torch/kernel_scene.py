@@ -18,17 +18,22 @@ core with ``diff_step_torch`` and sweeps back with ``diff_step_vjp_torch``,
 the hand-written VJP the kernel computes, line for line.
 ``march_scene_diff`` joins the two as a ``torch.autograd.Function``.
 
-``render_fast`` composes those records into the frame with the per-slot
-pass loop of the JAX package (kernel_scene.py:1831-1889 there): each slot
+``render_fast`` composes those records into the frame.  A bilinear frame
+composes through ``compose.compose_atlas``, the tile-compacted level
+engine with one merged texel-or-sky fetch a lane a level from the fetch
+atlas; a trilinear frame through the per-slot pass loop (each slot
 re-intersected and shaded in order, added together, cut at the first
 opaque hit; the far-field or flat ray folded into the first free slot; a
-residual far pass; then the sky.  The JAX package's tile-compacted fetch
-atlas (compose.py) and its lane- and tile-sparse branches exist for the
-TPU's per-index gather cost and are not part of this package.
+residual far pass; then the sky), as in the JAX package
+(kernel_scene.py:1789-1889 there).  Frames whose noise mask is a static
+function of the config (per-pixel hash noise, tile noise) render only the
+surviving lanes or tiles, packed into a dense pseudo-image
+(``_render_fast_lane_sparse``, ``_render_fast_tile_sparse``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import warnings
 from typing import Optional
@@ -39,7 +44,8 @@ import torch
 from . import _ext
 from . import geometry as geo
 from . import physics
-from .config import FLAT, RenderConfig
+from .compose import compose_atlas
+from .config import CURVED, FLAT, RenderConfig
 from .intersect import TestRay, intersect_scene, tube_frame, tube_segments
 from .kernel import (  # noqa: F401  (statuses and noise_field are public here too)
     STATUS_CAPTURED,
@@ -57,18 +63,20 @@ from .kernel import (  # noqa: F401  (statuses and noise_field are public here t
     _sphere_entry,
     _tangent_of,
     check_rays,
+    compact_march,
     grid_planes,
     init_events,
     march_scalars,
     noise_field,
     pixel_masks,
-    reject_unported,
     soft_shadow_alphas,
     steps_of,
 )
+from .noise import pixel_hash_rand_np, tile_hash_rand_np
 from .scene import OBJECT_TYPE_SPECIAL, Scene
-from .shading import get_background, shade
-from .textures import Texture, TextureStack, ensure_mips
+from .shading import (CROSSHAIR_COLOR, crosshair_mask, equirect_uv,
+                      get_background, shade)
+from .textures import Texture, TextureStack, build_atlas_cached, ensure_mips
 
 STATUS_FLAT_FINISH = 3.0
 STATUS_HIT_OPAQUE = 4.0
@@ -107,7 +115,8 @@ def _opaque_flags(sc: Scene, tex: Optional[TextureStack]):
     color_a = _np(m.color)[:, 3]
     tex_idx = _np(m.texture_index)
     dbl = _np(m.double_sided_normals)
-    tmin = None if tex is None else _np(tex.data[..., 3].amin(dim=(1, 2)))
+    tmin = (None if tex is None
+            else _np(tex.data[..., 3].amin(dim=(1, 2)).to(torch.float32)))
 
     def mat_opaque(mat_idx):
         mi = _np(mat_idx).astype(int)
@@ -583,6 +592,10 @@ def march_scene_torch(origin, direction, active, r_s, sc: Scene,
     return _as_outputs(p, events, False, cfg)
 
 
+# The JAX package's name for its plain twin of the march.
+march_scene_jnp = march_scene_torch
+
+
 def _as_outputs(p, events, count_steps, cfg):
     """A dict of march planes -> march_scene's return tuple."""
     out = (p["fdir"], p["fpos"], p["status"],
@@ -668,7 +681,8 @@ def _march_scene_planes_torch(origin, direction, active, r_s, sc: Scene,
 def march_scene(origin, direction, active, r_s, sc: Scene, cfg: RenderConfig,
                 n_slots: int = 4, tex: Optional[TextureStack] = None,
                 events: bool = False, count_steps: bool = False,
-                test_ray: Optional[TestRay] = None, mesh=None):
+                test_ray: Optional[TestRay] = None, mesh=None,
+                compact: bool = False):
     """Scene march of (..., 3) rays: (final_dir, final_pos, status, slots,
     nhits); ``nhits`` counts every hit (uncapped), so ``nhits > n_slots``
     flags rays whose extra hits were dropped.  ``tex`` (the stack the hits
@@ -689,7 +703,11 @@ def march_scene(origin, direction, active, r_s, sc: Scene, cfg: RenderConfig,
     ``march_scene.launches``); a CPU tensor runs :func:`march_scene_torch`.
     ``mesh`` (a ``DeviceMesh``) marches this rank's tile of the (H, W)
     rays, one launch, and returns the full planes on every rank
-    (``sharding.shard_march``)."""
+    (``sharding.shard_march``).  ``compact=True`` packs the active rays into
+    the leading lanes first (``kernel.compact_march``; under a mesh, within
+    each tile); it takes no ``events`` or ``count_steps``."""
+    if (events or count_steps) and compact:
+        raise ValueError("events and count_steps: non-compact marches only")
     if mesh is not None:
         if count_steps:
             raise ValueError("count_steps: a march on one device only")
@@ -697,8 +715,13 @@ def march_scene(origin, direction, active, r_s, sc: Scene, cfg: RenderConfig,
 
         return shard_march(mesh, functools.partial(
             march_scene, sc=sc, cfg=cfg, n_slots=n_slots, tex=tex,
-            events=events, test_ray=test_ray))(origin, direction, active,
-                                               r_s)
+            events=events, test_ray=test_ray, compact=compact))(
+                origin, direction, active, r_s)
+    if compact:
+        return compact_march(
+            lambda o, d, a: march_scene(o, d, a, r_s, sc, cfg, n_slots, tex,
+                                        test_ray=test_ray),
+            origin, direction, active)
     p = _march_scene_planes(origin, direction, active, r_s, sc, cfg, n_slots,
                             tex, events or count_steps, test_ray)
     return _as_outputs(p, events, count_steps, cfg)
@@ -1245,10 +1268,49 @@ class _MarchSceneDiff(torch.autograd.Function):
         return (g_o, g_d, g_rs.reshape(r_s.shape)) + (None,) * 6
 
 
+class _MarchSceneReplay(torch.autograd.Function):
+    """The scene march whose backward replays the plain march
+    (:func:`march_scene_torch`) under autograd: the JAX package's replay
+    backward, kept as a gradient oracle for the adjoint kernel."""
+
+    @staticmethod
+    def forward(ctx, origin, direction, r_s, active, sc, cfg, n_slots, tex,
+                test_ray):
+        p = _march_scene_planes(origin, direction, active, r_s, sc, cfg,
+                                n_slots, tex, False, test_ray)
+        ctx.save_for_backward(origin, direction, r_s, active)
+        ctx.args = (sc, cfg, n_slots, tex, test_ray)
+        ctx.mark_non_differentiable(p["status"], p["nhits"])
+        return (p["fdir"], p["fpos"], p["status"], p["nhits"], p["start"],
+                p["sdir"], p["slen"])
+
+    @staticmethod
+    def backward(ctx, g_fdir, g_fpos, _g_status, _g_nhits, g_start, g_sdir,
+                 g_slen):
+        origin, direction, r_s, active = ctx.saved_tensors
+        sc, cfg, n_slots, tex, test_ray = ctx.args
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(True)
+                      for x in (origin, direction, r_s)]
+            p = _march_scene_planes_torch(*leaves[:2], active, leaves[2], sc,
+                                          cfg, n_slots, tex,
+                                          test_ray=test_ray)
+            pairs = [(p[k], g) for k, g in (
+                ("fdir", g_fdir), ("fpos", g_fpos), ("start", g_start),
+                ("sdir", g_sdir), ("slen", g_slen)) if g is not None]
+            grads = torch.autograd.grad([o for o, _ in pairs],
+                                        leaves, [g for _, g in pairs],
+                                        allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(leaves, grads)]
+        return tuple(grads) + (None,) * 6
+
+
 def march_scene_diff(origin, direction, active, r_s, sc: Scene,
                      cfg: RenderConfig, n_slots: int = 4,
                      tex: Optional[TextureStack] = None,
-                     test_ray: Optional[TestRay] = None, mesh=None):
+                     test_ray: Optional[TestRay] = None, mesh=None,
+                     compact: bool = False, backward: str = "pallas"):
     """Differentiable :func:`march_scene`: the forward kernel with its event
     planes, and the adjoint kernel (:func:`march_scene_bwd`) as backward.
     Gradients reach (origin, direction, r_s) at the decisions the forward
@@ -1256,19 +1318,211 @@ def march_scene_diff(origin, direction, active, r_s, sc: Scene,
     The scene's geometry gets no gradient through the march: the march reads
     it only in comparisons.  Scene and texture gradients come from the slot
     re-intersection in :func:`render_fast`.  Returns what
-    :func:`march_scene` returns.  ``mesh`` as :func:`march_scene`'s: each
-    rank's adjoint runs on its own tile (the JAX package falls back to a
-    scan replay under a mesh)."""
+    :func:`march_scene` returns.  ``mesh`` and ``compact`` as
+    :func:`march_scene`'s: each rank's adjoint runs on its own tile (the
+    JAX package falls back to a scan replay under a mesh), and a compacted
+    march's on the packed rays.  ``backward``: "pallas" (the JAX package's
+    name for its adjoint-kernel mode) takes the adjoint kernel; "replay"
+    re-runs the plain march under autograd in the backward (every step's
+    values saved: a gradient oracle for small frames)."""
+    if backward not in ("pallas", "replay"):
+        raise ValueError(f"unknown backward mode {backward!r}")
     if mesh is not None:
         from .sharding import shard_march
 
         return shard_march(mesh, functools.partial(
             march_scene_diff, sc=sc, cfg=cfg, n_slots=n_slots, tex=tex,
-            test_ray=test_ray))(origin, direction, active, r_s)
+            test_ray=test_ray, compact=compact, backward=backward))(
+                origin, direction, active, r_s)
+    if compact:
+        return compact_march(
+            lambda o, d, a: march_scene_diff(o, d, a, r_s, sc, cfg, n_slots,
+                                             tex, test_ray,
+                                             backward=backward),
+            origin, direction, active)
     r_s = _f32(r_s, origin.device)
-    fdir, fpos, status, nhits, start, sdir, slen = _MarchSceneDiff.apply(
+    fn = _MarchSceneDiff if backward == "pallas" else _MarchSceneReplay
+    fdir, fpos, status, nhits, start, sdir, slen = fn.apply(
         origin, direction, r_s, active, sc, cfg, n_slots, tex, test_ray)
     return fdir, fpos, status, _split_slots(start, sdir, slen), nhits
+
+
+def _sparse_call(sc, cfg, background, tex, r_s, n_slots, overflow, kw, pre):
+    """render_fast of a sparse branch's pseudo-image (``pre``: its planes)
+    without the crosshair, which the branch adds over the full frame:
+    (image, n_overflowed or None)."""
+    out = render_fast(sc, None, dataclasses.replace(cfg, crosshair=False),
+                      background, tex, r_s, n_slots,
+                      "ignore" if overflow == "ignore" else "return",
+                      precomputed=pre, **kw)
+    return out if overflow != "ignore" else (out, None)
+
+
+def _sparse_finish(img, planes, cfg, n_over, n_slots, overflow):
+    """The crosshair over the full frame (the reference draws it before the
+    noise test, frag:845-857), then render_fast's overflow handling."""
+    if cfg.crosshair:
+        ch = crosshair_mask(planes["u_ndc"], planes["v_ndc"], cfg.width,
+                            cfg.height)
+        img = img + torch.where(ch[..., None], torch.tensor(
+            CROSSHAIR_COLOR, device=img.device), 0.0)
+    return _overflow_result(img, n_over, n_slots, overflow)
+
+
+def _overflow_result(img, n_over, n_slots, overflow):
+    if overflow == "ignore":
+        return img
+    n_over = int(n_over)
+    if overflow == "return":
+        return img, n_over
+    if n_over:
+        warnings.warn(f"render_fast: {n_over} rays exceeded n_slots={n_slots} "
+                      "recording slots (extra translucent hits dropped; "
+                      "raise n_slots)")
+    return img
+
+
+def _radial_dropped(planes, keep):
+    """Pixels that render flat whatever the noise (radial rays: the
+    reference tests radiality before the noise skip, frag:866-881) although
+    the noise mask ``keep`` drops them."""
+    o, d = planes["origin"], planes["direction"]
+    return physics.is_radial(d, geo.safe_normalize(o)) & ~keep
+
+
+def _first_true(mask, count: int):
+    """The indices of the first ``count`` true entries of the 1-D ``mask``
+    in order, padded with mask.numel(): ranks from a cumsum, so no read of
+    the host."""
+    n = mask.numel()
+    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+    out = torch.full((count + 1,), n, dtype=torch.int64, device=mask.device)
+    out.index_copy_(0, torch.where(mask & (rank < count), rank, count),
+                    torch.arange(n, device=mask.device))
+    return out[:count]
+
+
+@functools.lru_cache(maxsize=8)
+def _lane_survivors(width: int, height: int, seed: int, percent_black: float,
+                    device):
+    """The hash mask's kept pixels, a function of the config alone and so
+    computed once a config (on the host) and kept on ``device``: (keep
+    (H * W,) bool, the kept pixels' ids int64).  Shared: read only."""
+    keep = (pixel_hash_rand_np(width, height, seed)
+            > np.float32(percent_black)).reshape(-1)
+    return (torch.as_tensor(keep, device=device),
+            torch.as_tensor(np.nonzero(keep)[0], device=device))
+
+
+@functools.lru_cache(maxsize=8)
+def _tile_survivors(width: int, height: int, seed: int, tile: tuple,
+                    percent_black: float, device):
+    """The tile mask's kept pixels (H, W) bool and kept tiles' ids (row-major
+    tiles), once a config as :func:`_lane_survivors`.  Shared: read only."""
+    th, tw = tile
+    keep = (tile_hash_rand_np(width, height, seed, (th, tw))
+            > np.float32(percent_black))
+    ids = np.nonzero(keep[::th, ::tw].reshape(-1))[0]
+    return (torch.as_tensor(keep, device=device),
+            torch.as_tensor(ids, device=device))
+
+
+def _render_fast_lane_sparse(sc, cam, cfg, background, tex, r_s, n_slots,
+                             overflow, kw):
+    """Per-pixel hash noise (the reference's default, percent_black 0.75,
+    main.cpp:66, frag:879-881) renders only its surviving pixels.
+
+    The hash mask is a function of the config alone, so the survivors'
+    ids are known on the host (``noise.pixel_hash_rand_np``), once a
+    config (:func:`_lane_survivors`).  Their rays,
+    uv and noise values are taken from the full frame's grid planes, so
+    each lane is the full frame's lane, and the whole pipeline (march,
+    composition levels, fetches) runs on a dense (rows, 128) pseudo-image
+    of them, scattered back over a black frame.  A noise-dropped radial
+    pixel still renders flat: such pixels ride 4 slack tiles of 8 x 128
+    lanes, the first tiles that hold one (radiality is an exact-alignment
+    test, a few pixels in a tile or two); one past the slack renders black,
+    the deviation the JAX package documents.  Kept pixels in a slack tile
+    are skipped there (their static lane renders them)."""
+    H, W = cfg.height, cfg.width
+    dev = background.data.device
+    keep, static_ids = _lane_survivors(W, H, cfg.noise_seed,
+                                       cfg.percent_black, dev)
+    n_static = static_ids.shape[0]
+    th, tw, slack = 8, 128, 4
+    ntw = W // tw
+    planes = grid_planes(cam, cfg, dev)
+    rad = _radial_dropped(planes, keep.reshape(H, W))
+    tiles = _first_true(rad.reshape(H // th, th, ntw, tw).any(3).any(1)
+                        .reshape(-1), slack)
+    within = (torch.arange(th, device=dev)[:, None] * W
+              + torch.arange(tw, device=dev)[None, :]).reshape(1, -1)
+    dyn = (tiles // ntw * th * W + tiles % ntw * tw)[:, None] + within
+    dyn = torch.where((tiles < (H // th) * ntw)[:, None], dyn, H * W)
+    n_dyn = slack * th * tw
+    rows = -(-(n_static + n_dyn) // 128)
+    cap = -(-rows // 16) * 16 * 128  # rows a multiple of 16
+    ids = torch.cat([static_ids, dyn.reshape(-1),
+                     torch.full((cap - n_static - n_dyn,), H * W,
+                                dtype=torch.int64, device=dev)])
+    pid = torch.clamp(ids, max=H * W - 1)
+    is_dyn = torch.arange(cap, device=dev) >= n_static
+    # Filler lanes and kept pixels of the slack get rnd 0: noise-skipped,
+    # no march work, no hit counted twice.
+    skip = (ids == H * W) | (is_dyn & keep[pid])
+    pre = {name: x.reshape((H * W,) + x.shape[2:]).index_select(0, pid)
+           .reshape((cap // 128, 128) + x.shape[2:])
+           for name, x in planes.items()}
+    pre["rnd"] = torch.where(skip.reshape(cap // 128, 128), 0.0, pre["rnd"])
+    img_d, n_over = _sparse_call(sc, cfg, background, tex, r_s, n_slots,
+                                 overflow, kw, pre)
+    dest = torch.where(skip, H * W, ids)
+    img = torch.zeros((H * W + 1, 4), device=dev).index_copy(
+        0, dest, img_d.reshape(cap, 4))[:H * W].reshape(H, W, 4)
+    return _sparse_finish(img, planes, cfg, n_over, n_slots, overflow)
+
+
+def _render_fast_tile_sparse(sc, cam, cfg, background, tex, r_s, n_slots,
+                             overflow, kw):
+    """Tile noise (``noise_mode="tile"``) renders only its surviving tiles.
+
+    Which tiles the mask kills is a function of the config alone
+    (``noise.tile_hash_rand_np``), so the pipeline runs on a dense
+    pseudo-image of the kept tiles, taken from the full frame's grid
+    planes, and scatters them back.  Noise-dropped tiles that hold a radial
+    pixel (which renders flat whatever the noise) ride 16 slack tiles, the
+    first such tiles; one past the slack renders black, as in the JAX
+    package."""
+    H, W = cfg.height, cfg.width
+    th, tw = cfg.noise_tile
+    nth, ntw = H // th, W // tw
+    nt = nth * ntw
+    slack = 16
+    dev = background.data.device
+    keep_px, static_ids = _tile_survivors(W, H, cfg.noise_seed, (th, tw),
+                                          cfg.percent_black, dev)
+    planes = grid_planes(cam, cfg, dev)
+
+    def tiled(x):
+        x = x.reshape((nth, th, ntw, tw) + x.shape[2:]).transpose(1, 2)
+        return x.reshape((nt, th, tw) + x.shape[4:])
+
+    rad = tiled(_radial_dropped(planes, keep_px)).any(2).any(1)
+    ids = torch.cat([static_ids, _first_true(rad, slack)])
+    valid = ids < nt
+    capk = ids.shape[0]
+    pre = {name: tiled(x).index_select(0, torch.clamp(ids, max=nt - 1))
+           .reshape((capk * th, tw) + x.shape[2:])
+           for name, x in planes.items()}
+    # Fill rows of the slack get rnd 0: every lane noise-skipped.
+    pre["rnd"] = torch.where(valid.repeat_interleave(th)[:, None],
+                             pre["rnd"], 0.0)
+    img_d, n_over = _sparse_call(sc, cfg, background, tex, r_s, n_slots,
+                                 overflow, kw, pre)
+    img = torch.zeros((nt + 1, th, tw, 4), device=dev).index_copy(
+        0, torch.where(valid, ids, nt), img_d.reshape(capk, th, tw, 4))[:nt]
+    img = img.reshape(nth, ntw, th, tw, 4).transpose(1, 2).reshape(H, W, 4)
+    return _sparse_finish(img, planes, cfg, n_over, n_slots, overflow)
 
 
 def render_fast(
@@ -1286,8 +1540,9 @@ def render_fast(
     mesh=None,
     differentiable: bool = False,
     precomputed=None,
-    compact_slots=None,
+    compact_slots="auto",
     atlas=None,
+    skip_empty_slots: bool = False,
 ):
     """Full-scene frame: :func:`march_scene` + K-slot composition, (H, W, 4)
     RGBA on the device of ``background``.
@@ -1307,18 +1562,54 @@ def render_fast(
     :class:`intersect.TestRay`) draws the debug tubes: they ride the march
     kernel's cylinder table and the composition's re-intersection.
 
+    A bilinear frame composes through ``compose.compose_atlas`` with the
+    fetch atlas ``atlas`` (default: ``textures.build_atlas_cached`` of
+    (background, tex), built once for a pair of textures); the texels get
+    gradients through an atlas that requires grad (one built from texels
+    that do), and are held constant otherwise.  ``compact_slots``: "auto"
+    (default) or a sequence of per-pass capacities run the composition's
+    trailing levels on the 8 x 128 tiles that still have work (forced off
+    under ``mesh``; the capacities are the JAX package's, which its
+    bilinear levels do not read); None runs every level on the whole
+    frame.  A trilinear frame composes with the per-slot pass loop, which
+    skips a slot no lane takes whatever ``skip_empty_slots`` says (the JAX
+    package keeps that skip off by default for its TPU gathers' sake).
+
+    Hash noise (``noise_mode="hash"``) on a curved bilinear frame of a
+    multiple of 8 rows and 128 columns and at least 64 such tiles renders
+    only its surviving pixels, and tile noise whose tiles divide the frame
+    (at least 16 of them) only its surviving tiles (see
+    ``_render_fast_lane_sparse``, ``_render_fast_tile_sparse``), unless
+    ``compact_slots`` is None or a ``mesh`` or ``precomputed`` is given.
+
     ``mesh`` (a ``DeviceMesh``) marches each rank's tile of the frame
     (:func:`march_scene` with ``mesh=``) and composes the full frame on
     every rank.  ``precomputed``: a dict of ``origin``, ``direction``
     (batch + (3,)), ``u_ndc``, ``v_ndc`` and ``rnd`` (batch-shaped), the
     part of the frame's grid quantities (``kernel.grid_planes``) that this
     call renders, in place of the camera's (``cam`` may be None): the
-    tile-sharding hook (``sharding.make_tile_render``).  The remaining
-    keywords name options of the JAX package that this package does not
-    have; any value but the default raises NotImplementedError."""
+    tile-sharding hook (``sharding.make_tile_render``)."""
     if overflow not in ("warn", "return", "ignore"):
         raise ValueError(f"unknown overflow mode {overflow!r}")
-    reject_unported(compact_slots=compact_slots, atlas=atlas)
+    if cfg.texture_filter not in ("bilinear", "trilinear"):
+        raise ValueError(f"unknown texture_filter {cfg.texture_filter!r}")
+    trilinear = cfg.texture_filter == "trilinear"
+    H, W = cfg.height, cfg.width
+    sparse_ok = (precomputed is None and mesh is None and not trilinear
+                 and cfg.percent_black > 0.0 and cfg.raytrace_type == CURVED
+                 and compact_slots is not None)
+    kw = dict(opaque_stop=opaque_stop, test_ray=test_ray,
+              differentiable=differentiable, compact_slots=compact_slots,
+              atlas=atlas, skip_empty_slots=skip_empty_slots)
+    if (sparse_ok and cfg.noise_mode == "hash" and H % 8 == 0
+            and W % 128 == 0 and H * W >= 64 * 8 * 128):
+        return _render_fast_lane_sparse(sc, cam, cfg, background, tex, r_s,
+                                        n_slots, overflow, kw)
+    th, tw = cfg.noise_tile
+    if (sparse_ok and cfg.noise_mode == "tile" and H % th == 0
+            and W % tw == 0 and H * W >= 16 * th * tw):
+        return _render_fast_tile_sparse(sc, cam, cfg, background, tex, r_s,
+                                        n_slots, overflow, kw)
     dev = background.data.device
     r_s = torch.as_tensor(r_s, dtype=torch.float32, device=dev)
     if precomputed is None:
@@ -1327,7 +1618,6 @@ def render_fast(
     origin, direction = px["origin"], px["direction"]
     flat_px, march_px = px["flat_px"], px["march_px"]
     batch = flat_px.shape
-    trilinear = cfg.texture_filter == "trilinear"
     if trilinear:
         background, tex = ensure_mips(background, tex)
 
@@ -1342,23 +1632,40 @@ def render_fast(
         slots = []
         nhits = torch.zeros(batch, device=dev)
 
+    inputs = _composition_inputs(px, fdir, fpos, status, slots, r_s, cfg)
+    if not trilinear:
+        if atlas is None:
+            atlas = build_atlas_cached(background, tex)
+        color, _, _ = compose_atlas(
+            sc, tex, atlas, r_s, test_ray=test_ray,
+            compact_tiles=compact_slots is not None and mesh is None,
+            frozen_texels=not atlas.data.requires_grad, **inputs)
+    else:
+        color = _compose_passes(sc, tex, background, r_s, test_ray, **inputs)
+    img = px["base"] + color
+    if overflow == "ignore":
+        return img
+    return _overflow_result(img, (nhits > float(n_slots)).sum(), n_slots,
+                            overflow)
+
+
+def _composition_inputs(px, fdir, fpos, status, slots, r_s,
+                        cfg: RenderConfig):
+    """The composition's per-lane inputs (``compose.compose_atlas``'s
+    keywords) from a frame's pixel masks ``px`` (``kernel.pixel_masks``)
+    and its march's final direction and position, status and slots."""
+    origin, direction = px["origin"], px["direction"]
+    flat_px, march_px = px["flat_px"], px["march_px"]
+    batch = flat_px.shape
     use_pos = torch.where(flat_px[..., None], origin, fpos)
     use_dir = torch.where(flat_px[..., None], direction, fdir)
     needs_far = flat_px | (march_px & (status == STATUS_FLAT_FINISH))
-    color = torch.zeros(batch + (4,), device=dev)
-    # Lanes still accumulating (no opaque hit yet); flat pixels take part
-    # through their far ray, folded into slot 0.
-    open_ = march_px | flat_px
-    captured_shaded = torch.zeros(batch, dtype=torch.bool, device=dev)
     recs = [slen > 0.0 for _, _, slen in slots]
     # A lane's first free slot is its number of recorded slots (the march
     # fills slots in order).
-    n_rec = torch.zeros(batch, dtype=torch.int32, device=dev)
+    n_rec = torch.zeros(batch, dtype=torch.int32, device=flat_px.device)
     for r in recs:
         n_rec = n_rec + r.to(torch.int32)
-    unit_x = torch.tensor([1.0, 0.0, 0.0], device=dev)
-    zeros3 = torch.zeros(batch + (3,), device=dev)
-
     soft = cfg.horizon_softness > 0.0
     if soft:
         alpha_curved, alpha_flat = soft_shadow_alphas(
@@ -1368,7 +1675,31 @@ def render_fast(
         # straight-line impact parameter.
         bg_scale = (1.0 - torch.where(needs_far, alpha_flat,
                                       alpha_curved))[..., None]
-    bg_hard = flat_px | (march_px & (status != STATUS_CAPTURED))
+    else:
+        bg_scale = torch.ones(batch + (1,), device=flat_px.device)
+    bgu, bgv = equirect_uv(use_dir)
+    # Flat pixels take part through their far ray, folded into slot 0.
+    return dict(slots=slots, recs=recs, n_rec=n_rec, needs_far=needs_far,
+                use_pos=use_pos, use_dir=use_dir, bgu=bgu, bgv=bgv,
+                bg_hard=flat_px | (march_px & (status != STATUS_CAPTURED)),
+                bg_scale=bg_scale, soft=soft,
+                cap_drop=march_px & (status == STATUS_CAPTURED),
+                open_init=march_px | flat_px)
+
+
+def _compose_passes(sc, tex, background, r_s, test_ray, *, slots, recs,
+                    n_rec, needs_far, use_pos, use_dir, bg_hard, bg_scale,
+                    soft, cap_drop, open_init, **_):
+    """The trilinear frame's composition: the per-slot pass loop over the
+    whole grid (its LOD needs the image's neighbours), each pass skipped
+    when no lane takes it (one read of the host a pass)."""
+    open_ = open_init
+    batch = open_.shape
+    dev = open_.device
+    color = torch.zeros(batch + (4,), device=dev)
+    captured_shaded = torch.zeros(batch, dtype=torch.bool, device=dev)
+    unit_x = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    zeros3 = torch.zeros(batch + (3,), device=dev)
 
     def slot_pass(eff, start, sdir, slen, rec, fold):
         """Re-intersect and shade one slot (or the folded far ray) and add it
@@ -1385,7 +1716,7 @@ def render_fast(
         window = torch.where(fold, -1.0,
                              torch.where(rec, slen * 1.0001 + 1e-5, 1.0))
         hit = intersect_scene(safe_start, safe_dir, window, sc, r_s, test_ray)
-        rgba = shade(hit, -safe_dir, sc, tex, trilinear=trilinear)
+        rgba = shade(hit, -safe_dir, sc, tex, trilinear=True)
         take = eff & open_ & hit.valid
         opaque_take = take & (rgba[..., 3] == 1.0)
         color = color + torch.where(take[..., None], rgba, 0.0)
@@ -1405,26 +1736,12 @@ def render_fast(
     # Sky for every lane still open, except captured rays: a capture is
     # opaque black even when its slot was dropped by overflow.
     march_bg = open_ & bg_hard
-    bg = get_background(background, use_dir, trilinear=trilinear)
+    bg = get_background(background, use_dir, trilinear=True)
     if soft:
-        captured_m = captured_shaded | (
-            march_px & (status == STATUS_CAPTURED) & open_)
-        color = color + torch.where((march_bg | captured_m)[..., None],
-                                    bg * bg_scale, 0.0)
-    else:
-        color = color + torch.where(march_bg[..., None], bg, 0.0)
-
-    img = px["base"] + color
-    if overflow == "ignore":
-        return img
-    n_over = int((nhits > float(n_slots)).sum())
-    if overflow == "return":
-        return img, n_over
-    if n_over:
-        warnings.warn(f"render_fast: {n_over} rays exceeded n_slots={n_slots} "
-                      "recording slots (extra translucent hits dropped; "
-                      "raise n_slots)")
-    return img
+        captured_m = captured_shaded | (cap_drop & open_)
+        return color + torch.where((march_bg | captured_m)[..., None],
+                                   bg * bg_scale, 0.0)
+    return color + torch.where(march_bg[..., None], bg, 0.0)
 
 
 def render_fast_auto(sc: Scene, cam, cfg: RenderConfig, background: Texture,

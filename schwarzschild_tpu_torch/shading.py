@@ -37,6 +37,13 @@ def _gather(table, idx):
     return table[idx.to(torch.int64)]
 
 
+def _concrete_none_negative(idx) -> bool:
+    """True iff every entry of ``idx`` is < 0 (for example, no material
+    uses a normal map): one read of the table, so callers skip the work
+    that such entries would need."""
+    return bool((idx < 0).all())
+
+
 class TexelRequest(NamedTuple):
     """A batch of hits' texture-fetch request (see :func:`texel_request`)."""
 
@@ -86,6 +93,13 @@ def texel_request(hit: Hit, sc: Scene, tex: TextureStack) -> TexelRequest:
                           rescaled_uv)
     return TexelRequest(sample_uv[..., 0], sample_uv[..., 1], texture_index,
                         use_tex, uv, cont_uv[..., 0], cont_uv[..., 1])
+
+
+def shade_from_base(hit: Hit, view_dir, sc: Scene, base_color):
+    """Phong lighting and the special-type colours for an already resolved
+    ``base_color`` (material colour or fetched texel): :func:`shade`
+    without its texture fetches and normal maps."""
+    return _shade_lit(hit, view_dir, sc, base_color, nm_rgb=None)
 
 
 def _shade_lit(hit: Hit, view_dir, sc: Scene, base_color, nm_rgb):
@@ -176,7 +190,7 @@ def shade(hit: Hit, view_dir, sc: Scene,
         base_color = torch.where(req.use_tex[..., None], sampled, color)
         # Normal map (frag:408-413): the raw rgb in [0, 1], as the
         # reference uses it.  Skipped when no material has one.
-        if bool((m.normal_map_index >= 0).any()):
+        if not _concrete_none_negative(m.normal_map_index):
             normal_map_index = _gather(m.normal_map_index, mi)
             nm_sizes = _gather(
                 tex.sizes,

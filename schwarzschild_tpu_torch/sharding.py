@@ -39,6 +39,7 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from .config import RenderConfig, resolve_device
+from .textures import build_atlas_cached
 
 # What a padded lane of each plane holds: an inert ray (radial, so the
 # frames' own rule takes it off the march), no noise, no pixel position.
@@ -261,9 +262,11 @@ def make_tile_render(cfg: RenderConfig, renderer: str = "jnp",
     * "fast": ``kernel_scene.render_fast`` on the tile's part of the
       frame's grid quantities (``precomputed=``), built on the full grid;
       its padded lanes are radial rays, which the frame takes off the
-      march.  Bilinear only: a trilinear frame composes on the full grid
-      (``make_sharded_render`` marches it with ``render_fast(mesh=)``).
-      ``differentiable`` as render_fast's.
+      march.  The tile's composition compacts its own 8 x 128 tiles.
+      ``tile`` takes the fetch atlas as ``atlas=`` (default: render_fast
+      builds or reuses it).  Bilinear only: a trilinear frame composes on
+      the full grid (``make_sharded_render`` marches it with
+      ``render_fast(mesh=)``).  ``differentiable`` as render_fast's.
     * "jnp": the dense ``render.render`` of the tile's rows and columns.
       A trilinear tile renders with a one-pixel halo, wrapped modulo H and
       W as ``torch.roll`` wraps, on each axis the mesh splits, and is then
@@ -278,14 +281,15 @@ def make_tile_render(cfg: RenderConfig, renderer: str = "jnp",
         from .kernel import grid_planes
         from .kernel_scene import render_fast
 
-        def tile(coord, sc, cam, background, tex=None, r_s=1.0):
+        def tile(coord, sc, cam, background, tex=None, r_s=1.0,
+                 atlas=None):
             planes = grid_planes(cam, cfg, background.data.device)
             part = {k: tile_of(v, H, W, shape, coord, _PAD[k])
                     for k, v in planes.items()}
             return render_fast(sc, None, cfg, background, tex, r_s,
                                n_slots=n_slots, overflow="ignore",
                                differentiable=differentiable,
-                               precomputed=part)
+                               precomputed=part, atlas=atlas)
     elif renderer == "jnp":
         from .render import render
 
@@ -349,7 +353,13 @@ def make_sharded_render(mesh, cfg: RenderConfig, renderer: str = "jnp",
                               device=background.data.device)
         (sc, cam, background, tex, r_s), anchors = _replicate(
             (sc, cam, background, tex, r_s))
-        img = tile(coord, sc, cam, background, tex, r_s)
+        extra = {}
+        if renderer == "fast":
+            # The fetch atlas of the replicated textures, built once for a
+            # pair of textures (each call, differentiably, for texels that
+            # require grad) and handed to the tile's render_fast.
+            extra["atlas"] = build_atlas_cached(background, tex)
+        img = tile(coord, sc, cam, background, tex, r_s, **extra)
         return _gather(mesh, H, W, [img], anchors)[0]
 
     return sharded

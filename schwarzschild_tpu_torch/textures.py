@@ -7,8 +7,17 @@ is the BOTTOM row, a stack pads every image to the largest size with
 (0, 0, 0, 0) texels, and per-texture true sizes rescale UVs.
 
 Sampling is a plain four-corner gather per lane: on the GPU an indexed load
-costs the same whatever its pattern, so none of the JAX package's gather
-layouts (channel-major patches, the merged fetch atlas) is needed.
+costs the same whatever its pattern, so the JAX package's channel-major
+patch gathers are not carried over.  Every sampler casts the gathered
+texels to float32 before its lerp, so texels stored as bfloat16
+(:func:`with_dtype`) sample in float32 and an alpha of exactly 1 stays 1.
+
+The merged fetch atlas (:class:`FetchAtlas`) holds the background and the
+stack in one sheet of 2 x 2 bilinear footprints, the JAX package's storage
+bit for bit, so that a composition level fetches each lane's texel or sky
+texel with one indexed load of 64 bytes (``compose.compose_atlas``).  The
+compacted samplers run a sampler only on the lanes that want it, packed
+into a fixed number of rows without a read of the host.
 
 Mips are opt-in, beyond the reference: its min filter is GL_LINEAR, so GL
 never samples the mipmaps it generates, and bilinear level 0 is the parity
@@ -19,6 +28,7 @@ pyramid with :func:`build_mips` when a texture carries none.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -126,7 +136,8 @@ def _bilinear(data, layer, u, v):
     Indices wrap with ``torch.remainder`` (non-negative, like ``jnp.mod``),
     and the lerps are written ``a + f * (b - a)``: that form keeps an alpha
     of exactly 1 at 1, which the first-opaque test ``rgba[..., 3] == 1``
-    depends on (``torch.lerp`` rounds differently)."""
+    depends on (``torch.lerp`` rounds differently).  The corners are cast
+    to float32 first (bfloat16 texels sample in float32)."""
     h, w = data.shape[-3], data.shape[-2]
     x = u * w - 0.5
     y = v * h - 0.5
@@ -141,10 +152,10 @@ def _bilinear(data, layer, u, v):
 
     flat = data.reshape(-1, data.shape[-1])
     base = layer.to(torch.int64) * (h * w)
-    c00 = flat[base + y0i * w + x0i]
-    c10 = flat[base + y0i * w + x1i]
-    c01 = flat[base + y1i * w + x0i]
-    c11 = flat[base + y1i * w + x1i]
+    c00 = flat[base + y0i * w + x0i].to(torch.float32)
+    c10 = flat[base + y0i * w + x1i].to(torch.float32)
+    c01 = flat[base + y1i * w + x0i].to(torch.float32)
+    c11 = flat[base + y1i * w + x1i].to(torch.float32)
     top = c00 + fx * (c10 - c00)
     bot = c01 + fx * (c11 - c01)
     return top + fy * (bot - top)
@@ -161,6 +172,322 @@ def sample_stack(stack: TextureStack, index, u, v):
     (callers mask the result)."""
     idx = torch.clamp(index, 0, stack.data.shape[0] - 1)
     return _bilinear(stack.data, torch.broadcast_to(idx, u.shape), u, v)
+
+
+# ---------------------------------------------------------------------------
+# Compacted samplers: a sampler run only on the lanes that want it.
+# ---------------------------------------------------------------------------
+
+
+def _compact_rows(cols, want, cap: int):
+    """Pack the per-lane columns ``cols`` of the lanes that ``want`` into
+    ``cap`` rows, without a read of the host.
+
+    Each wanted lane's rank is ``cumsum(want) - 1``; lanes ranked below
+    ``cap`` scatter their index into that row, every other lane into a
+    discard row ``cap`` (dropped).  Returns (rows (cap, F) float32, idx
+    (cap,) the flat lane of each row, cvalid (cap,) the rows that hold a
+    lane, dropped (want's shape) the wanted lanes past ``cap``)."""
+    flat_want = want.reshape(-1)
+    n = flat_want.shape[0]
+    dev = flat_want.device
+    tab = torch.cat([c.reshape(n, -1).to(torch.float32) for c in cols],
+                    dim=-1)
+    rank = torch.cumsum(flat_want.to(torch.int64), 0) - 1
+    row = torch.where(flat_want & (rank < cap), rank, cap)
+    idx = torch.zeros(cap + 1, dtype=torch.int64, device=dev).index_copy_(
+        0, row, torch.arange(n, device=dev))[:cap]
+    cvalid = torch.arange(cap, device=dev) < flat_want.sum()
+    dropped = (flat_want & (rank >= cap)).reshape(want.shape)
+    return tab.index_select(0, idx), idx, cvalid, dropped
+
+
+def _compacted(sample_rows, cols, want, cap: int, full):
+    """``sample_rows(rows, cvalid)`` -> (cap, 4) samples of the packed
+    lanes, scattered back over zeros; wanted lanes past ``cap`` take
+    ``full()``, the full-batch sampler, which runs only when one was
+    dropped (one read of the host), so no lane is ever lost."""
+    batch = want.shape
+    rows, idx, cvalid, dropped = _compact_rows(cols, want, cap)
+    sampled = torch.where(cvalid[:, None], sample_rows(rows, cvalid), 0.0)
+    n = want.numel()
+    out = torch.zeros((n + 1, 4), device=sampled.device)
+    out = out.index_copy(0, torch.where(cvalid, idx, n), sampled)
+    out = out[:-1].reshape(batch + (4,))
+    if bool(dropped.any()):
+        out = torch.where(dropped[..., None], full(), out)
+    return out
+
+
+def sample_stack_compact(stack: TextureStack, index, u, v, want, cap: int):
+    """:func:`sample_stack` on the ``want`` lanes only, packed into ``cap``
+    rows (zeros elsewhere): per lane the same arithmetic on the same
+    values as the full batch, texel gradients included."""
+
+    def rows_of(rows, ok):
+        return sample_stack(stack,
+                            torch.where(ok, rows[:, 0].to(torch.int64), 0),
+                            torch.where(ok, rows[:, 1], 0.0),
+                            torch.where(ok, rows[:, 2], 0.0))
+
+    return _compacted(rows_of, [torch.broadcast_to(index, u.shape), u, v],
+                      want, cap, lambda: sample_stack(stack, index, u, v))
+
+
+def sample_texture_compact(tex: Texture, u, v, want, cap: int):
+    """:func:`sample_texture` compacted to the ``want`` lanes (see
+    :func:`sample_stack_compact`)."""
+
+    def rows_of(rows, ok):
+        return sample_texture(tex, torch.where(ok, rows[:, 0], 0.0),
+                              torch.where(ok, rows[:, 1], 0.0))
+
+    return _compacted(rows_of, [u, v], want, cap,
+                      lambda: sample_texture(tex, u, v))
+
+
+# ---------------------------------------------------------------------------
+# The merged fetch atlas: the background (layer 0) and the stack (layers
+# 1..T) as one sheet of bilinear footprints.
+# ---------------------------------------------------------------------------
+
+
+class FetchAtlas(NamedTuple):
+    """Layer 0 the background, layer i + 1 stack texture i.
+
+    ``data``: (G, 128) float32 or bfloat16; each row holds 8 quads of 16
+    values, [c00 c10 c01 c11] x 4 channels, the 2 x 2 footprint of one
+    texel origin with its REPEAT neighbours baked in.  Quad (l, y, x) is
+    row ``base[l] + y * gpr[l] + (x >> 3)``, group ``x & 7``: read as a
+    (G * 8, 16) view it is one 64-byte row.  Each layer packs at its own
+    extent, its width padded to a multiple of 8 with zero quads that are
+    never fetched.  ``wrap``: (L, 2) float32 (wrapW, wrapH), the REPEAT
+    extents the samplers use (the background's own size, the stack's
+    padded size); ``base``: (L,) int32 row offsets; ``gpr``: (L,) int32
+    rows per texel row, ceil(wrapW / 8).  The JAX package's layout."""
+
+    data: torch.Tensor
+    wrap: torch.Tensor
+    base: torch.Tensor
+    gpr: torch.Tensor
+
+
+def _quad_rows(src, wrap_h: int, wrap_w: int):
+    """(H, W, 4) -> the layer's (wrap_h * ceil(wrap_w / 8), 128) rows;
+    differentiable in ``src``."""
+    s = src[:wrap_h, :wrap_w]
+    xp = torch.roll(s, -1, 1)
+    yp = torch.roll(s, -1, 0)
+    xyp = torch.roll(xp, -1, 0)
+    quads = torch.cat([s, xp, yp, xyp], dim=-1)  # (h, w, 16)
+    wp = -(-wrap_w // 8) * 8
+    if wp != wrap_w:
+        quads = torch.nn.functional.pad(quads, (0, 0, 0, wp - wrap_w))
+    return quads.reshape(wrap_h * (wp // 8), 128)
+
+
+def _atlas_layers(background: Texture, stack: Optional[TextureStack]):
+    """The (source, wrap_h, wrap_w) of every layer."""
+    bh, bw = background.data.shape[-3], background.data.shape[-2]
+    layers = [(background.data, bh, bw)]
+    if stack is not None:
+        sh, sw = stack.data.shape[1], stack.data.shape[2]
+        layers += [(stack.data[i], sh, sw) for i in range(stack.data.shape[0])]
+    return layers
+
+
+def _atlas_tables(layers):
+    """Per-layer (wrap, base, gpr) numpy tables and the sheet's rows."""
+    wrap = np.asarray([[w, h] for _, h, w in layers], np.float32)
+    gpr = np.asarray([-(-w // 8) for _, _, w in layers], np.int32)
+    rows = np.asarray([h for _, h, _ in layers], np.int64) * gpr
+    base = np.concatenate([[0], np.cumsum(rows)[:-1]]).astype(np.int32)
+    return wrap, base, gpr, int(rows.sum())
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty(0, dtype=dtype).element_size()
+
+
+def atlas_nbytes(background: Texture, stack: Optional[TextureStack] = None,
+                 dtype=torch.float32) -> int:
+    """Device bytes of the atlas of these sources."""
+    _, _, _, total_rows = _atlas_tables(_atlas_layers(background, stack))
+    return total_rows * 128 * _itemsize(dtype)
+
+
+# Building an atlas past this many bytes raises (a configuration error
+# found at build time rather than as an out-of-memory mid-frame); the
+# environment variable raises it for bigger cards.
+ATLAS_MAX_BYTES = int(float(os.environ.get("SCHW_ATLAS_MAX_BYTES", 4e9)))
+
+
+def _check_atlas_bytes(nbytes: int):
+    if nbytes > ATLAS_MAX_BYTES:
+        raise ValueError(
+            f"fetch atlas would be {nbytes / 1e9:.2f} GB "
+            f"(> SCHW_ATLAS_MAX_BYTES={ATLAS_MAX_BYTES / 1e9:.2f} GB); "
+            "use dtype=torch.bfloat16 (halves it; <=0.4% texel error on "
+            "8-bit sources) or smaller textures")
+
+
+def build_atlas(background: Texture, stack: Optional[TextureStack] = None,
+                dtype=torch.float32) -> FetchAtlas:
+    """The merged fetch atlas of (background, stack) on the background's
+    device (see :class:`FetchAtlas`), built with torch ops (roll, cat,
+    pad, reshape): differentiable in the texels when they require grad."""
+    layers = _atlas_layers(background, stack)
+    wrap, base, gpr, total_rows = _atlas_tables(layers)
+    _check_atlas_bytes(total_rows * 128 * _itemsize(dtype))
+    dev = background.data.device
+    sheets = [_quad_rows(src.to(torch.float32), h, w).to(dtype)
+              for src, h, w in layers]
+    return FetchAtlas(data=torch.cat(sheets, dim=0),
+                      wrap=torch.as_tensor(wrap, device=dev),
+                      base=torch.as_tensor(base, device=dev),
+                      gpr=torch.as_tensor(gpr, device=dev))
+
+
+_ATLAS_CACHE = []  # (background data, stack data, versions, dtype, atlas)
+_ATLAS_CACHE_MAX = 4
+
+
+def build_atlas_cached(background: Texture,
+                       stack: Optional[TextureStack] = None,
+                       dtype=torch.float32) -> FetchAtlas:
+    """:func:`build_atlas`, kept for the source tensors' identity and their
+    version counters: a frame of the textures seen before reuses their
+    atlas, and an in-place write to a texture (which bumps its version)
+    builds a new one.  Sources that require grad bypass the cache and
+    build a differentiable atlas.  The last four atlases are kept."""
+    bg_d = background.data
+    st_d = stack.data if stack is not None else None
+    if bg_d.requires_grad or (st_d is not None and st_d.requires_grad):
+        return build_atlas(background, stack, dtype)
+    versions = (bg_d._version, None if st_d is None else st_d._version)
+    for i, (b, s, vers, dt, atlas) in enumerate(_ATLAS_CACHE):
+        if b is bg_d and s is st_d and dt == dtype:
+            del _ATLAS_CACHE[i]
+            if vers == versions:
+                _ATLAS_CACHE.insert(0, (b, s, vers, dt, atlas))
+                return atlas
+            break  # a stale atlas of these sources: rebuild
+    with torch.no_grad():
+        atlas = build_atlas(background, stack, dtype)
+    _ATLAS_CACHE.insert(0, (bg_d, st_d, versions, dtype, atlas))
+    del _ATLAS_CACHE[_ATLAS_CACHE_MAX:]
+    return atlas
+
+
+def _take(table, idx):
+    """Per-lane rows of a small per-layer table."""
+    return table.index_select(0, idx.reshape(-1)).reshape(
+        idx.shape + table.shape[1:])
+
+
+def _fetch_parts(atlas: FetchAtlas, layer, u, v):
+    """The bilinear footprint of each lane: the corners c00, c10, c01, c11
+    (float32, (..., 4) each), the fractions fx, fy ((..., 1)) and the
+    layer's wrap (w, h), with :func:`_bilinear`'s arithmetic."""
+    layer = torch.clamp(torch.broadcast_to(layer, u.shape).to(torch.int64),
+                        0, atlas.wrap.shape[0] - 1)
+    wh = _take(atlas.wrap, layer)
+    w, h = wh[..., 0], wh[..., 1]
+    base = _take(atlas.base, layer).to(torch.int64)
+    gpr = _take(atlas.gpr, layer).to(torch.int64)
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i = torch.remainder(x0.to(torch.int64), w.to(torch.int64))
+    y0i = torch.remainder(y0.to(torch.int64), h.to(torch.int64))
+    # One 64-byte quad a lane: row g * 8 + q of the (G * 8, 16) view.
+    quad = (base + y0i * gpr + (x0i >> 3)) * 8 + (x0i & 7)
+    c = atlas.data.view(-1, 16).index_select(0, quad.reshape(-1))
+    c = c.to(torch.float32).reshape(u.shape + (4, 4))
+    return c[..., 0, :], c[..., 1, :], c[..., 2, :], c[..., 3, :], fx, fy, w, h
+
+
+def atlas_fetch(atlas: FetchAtlas, layer, u, v):
+    """Bilinear GL_REPEAT sample of atlas layer ``layer`` at (u, v), one
+    indexed load of a quad a lane.  With a float32 atlas, bit-equal per
+    lane to :func:`sample_texture` (layer 0) and :func:`sample_stack`
+    (layer i + 1, at the same rescaled uv).  Differentiable in (u, v) and,
+    through the atlas, in the texels it was built from."""
+    c00, c10, c01, c11, fx, fy, _, _ = _fetch_parts(atlas, layer, u, v)
+    top = c00 + fx * (c10 - c00)
+    bot = c01 + fx * (c11 - c01)
+    return top + fy * (bot - top)
+
+
+class _AtlasFetchFrozen(torch.autograd.Function):
+    """:func:`atlas_fetch` with the texels held constant: the backward
+    reaches (u, v) only, through the two lerp-derivative planes saved by
+    the forward (the JAX package's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, data, wrap, base, gpr, layer, u, v):
+        atlas = FetchAtlas(data, wrap, base, gpr)
+        c00, c10, c01, c11, fx, fy, w, h = _fetch_parts(atlas, layer, u, v)
+        top = c00 + fx * (c10 - c00)
+        bot = c01 + fx * (c11 - c01)
+        d_dfx = (c10 - c00) + fy * ((c11 - c01) - (c10 - c00))
+        ctx.save_for_backward(d_dfx, bot - top, w, h)
+        return top + fy * (bot - top)
+
+    @staticmethod
+    def backward(ctx, ct):
+        d_dfx, d_dfy, w, h = ctx.saved_tensors
+        d_u = torch.sum(ct * d_dfx, dim=-1) * w
+        d_v = torch.sum(ct * d_dfy, dim=-1) * h
+        return None, None, None, None, None, d_u, d_v
+
+
+def atlas_fetch_frozen(atlas: FetchAtlas, layer, u, v):
+    """:func:`atlas_fetch` whose gradient reaches (u, v) only, the texels
+    treated as constants: no gather in the backward.  Right whenever the
+    atlas does not depend on what is differentiated (composition picks it
+    for an atlas that does not require grad)."""
+    return _AtlasFetchFrozen.apply(atlas.data, atlas.wrap, atlas.base,
+                                   atlas.gpr, layer, u, v)
+
+
+def atlas_fetch_compact(atlas: FetchAtlas, layer, u, v, want, cap: int):
+    """:func:`atlas_fetch` on the ``want`` lanes only, packed into ``cap``
+    rows (zeros elsewhere; see :func:`sample_stack_compact`)."""
+
+    def rows_of(rows, ok):
+        return atlas_fetch(atlas,
+                           torch.where(ok, rows[:, 0].to(torch.int64), 0),
+                           torch.where(ok, rows[:, 1], 0.0),
+                           torch.where(ok, rows[:, 2], 0.0))
+
+    return _compacted(rows_of, [torch.broadcast_to(layer, u.shape), u, v],
+                      want, cap, lambda: atlas_fetch(atlas, layer, u, v))
+
+
+# ---------------------------------------------------------------------------
+# Texel storage precision.
+# ---------------------------------------------------------------------------
+
+
+def with_dtype(tex: Texture, dtype=torch.bfloat16) -> Texture:
+    """The texture's texels (and mips) stored as ``dtype``: bfloat16 halves
+    their bytes at <= 0.4% error on 8-bit sources.  The samplers lerp in
+    float32, so an alpha of exactly 1.0 (representable in bfloat16) stays
+    1.0 and the first-opaque cut is unchanged.  float32 stays the default
+    (the parity target)."""
+    return tex._replace(data=tex.data.to(dtype),
+                        mips=tuple(m.to(dtype) for m in tex.mips))
+
+
+def stack_with_dtype(stack: TextureStack,
+                     dtype=torch.bfloat16) -> TextureStack:
+    """:func:`with_dtype` for a stack (its sizes stay float32)."""
+    return stack._replace(data=stack.data.to(dtype),
+                          mips=tuple(m.to(dtype) for m in stack.mips))
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +583,7 @@ def _bilinear_flat(buf, off, w, h, u, v, layer=None):
         # equal ones in one thread: a coarse level gathers one texel for
         # many lanes.
         return flat.index_select(0, idx.reshape(-1)).reshape(
-            idx.shape + flat.shape[-1:])
+            idx.shape + flat.shape[-1:]).to(torch.float32)
 
     c00 = at(base + y0i * w + x0i)
     c10 = at(base + y0i * w + x1i)

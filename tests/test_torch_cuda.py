@@ -559,3 +559,96 @@ def test_viewer_frame_on_card_matches_cpu(dev):
         assert a.dtype == np.uint8 and a.shape == (48, 96, 3)
         diff = np.abs(a.astype(np.int16) - b).max(-1)
         assert (diff <= 1).mean() >= 0.995, key
+
+
+def test_atlas_fetch_on_card_equals_cpu(dev):
+    """atlas_fetch on the card, mixed layers, equals the CPU's fetch bit for
+    bit and the card's own samplers; so does its compacted form."""
+    from schwarzschild_tpu_torch import textures
+
+    bg, tex = configs.background_texture(device="cpu"), \
+        configs.demo_texture_stack(device="cpu")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    n = 5000
+    u, v = torch.rand(n, generator=g) * 2 - 0.5, torch.rand(n, generator=g)
+    layer = torch.randint(0, tex.data.shape[0] + 1, (n,), generator=g)
+    want = torch.rand(n, generator=g) < 0.3
+    ref = textures.atlas_fetch(textures.build_atlas(bg, tex), layer, u, v)
+    cbg, ctex = sp.Texture(bg.data.to(dev)), tex._replace(
+        data=tex.data.to(dev), sizes=tex.sizes.to(dev),
+        max_size=tex.max_size.to(dev))
+    atlas = textures.build_atlas(cbg, ctex)
+    got = textures.atlas_fetch(atlas, layer.to(dev), u.to(dev), v.to(dev))
+    assert torch.equal(got.cpu(), ref)
+    plain = torch.where((layer == 0)[:, None].to(dev),
+                        textures.sample_texture(cbg, u.to(dev), v.to(dev)),
+                        textures.sample_stack(ctex, (layer - 1).to(dev),
+                                              u.to(dev), v.to(dev)))
+    assert torch.equal(got, plain)
+    comp = textures.atlas_fetch_compact(atlas, layer.to(dev), u.to(dev),
+                                        v.to(dev), want.to(dev), 1024)
+    assert torch.equal(comp.cpu()[want], ref[want])
+    assert (comp.cpu()[~want] == 0).all()
+
+
+@pytest.mark.parametrize("noise", ["hash", "tile"])
+def test_sparse_frame_on_card_matches_cpu(dev, noise):
+    """The lane-sparse (hash noise) and tile-sparse (tile noise) frames on
+    the card: within 1e-6 of the card's full frame, one march launch, and
+    within the frame rule of the CPU's frame."""
+    kw = (dict(noise_mode="hash") if noise == "hash"
+          else dict(noise_mode="tile", noise_tile=(16, 128)))
+    cfg = sp.RenderConfig(width=512, height=128, percent_black=0.75,
+                          crosshair=True, **kw)
+
+    def frame(device, **extra):
+        return sp.render_fast(configs.demo_scene(device=device),
+                              configs.demo_camera(device=device), cfg,
+                              configs.background_texture(device=device),
+                              configs.demo_texture_stack(device=device), 1.0,
+                              **extra)
+
+    before = kernel_scene.march_scene.launches
+    img = frame(dev)
+    torch.cuda.synchronize()
+    assert kernel_scene.march_scene.launches == before + 1
+    assert (img - frame(dev, compact_slots=None)).abs().max() <= 1e-6
+    diff = (img.cpu() - frame("cpu")).abs().amax(-1)
+    assert (diff < 2e-3).float().mean() >= 0.995
+
+
+@pytest.mark.parametrize("march", ["march_bh", "march_scene"])
+def test_compact_march_on_card_equals_cpu(dev, march):
+    """compact=True on the card: one launch, every active ray's planes
+    equal to the unpacked kernel's; against the CPU's compacted march,
+    status (and hit count) agree on 99.9% of lanes and the agreeing
+    lanes' planes within 1e-3 (the card's and the CPU's arithmetic differ
+    by ulps)."""
+    o, d, active = _rays(dev, 96, 64, drop=0.75)
+    cfg = sp.RenderConfig(width=96, height=64, percent_black=-1.0)
+
+    def run(device, compact):
+        args = (o.to(device), d.to(device), active.to(device), 1.0)
+        if march == "march_bh":
+            return kernel.march_bh(*args, cfg, compact=compact)
+        return kernel_scene.march_scene(
+            *args, configs.demo_scene(device=device), cfg, 4,
+            configs.demo_texture_stack(device=device), compact=compact)
+
+    before = getattr(kernel if march == "march_bh" else kernel_scene,
+                     march).launches
+    got = torch.utils._pytree.tree_flatten(run(dev, True))[0]
+    assert getattr(kernel if march == "march_bh" else kernel_scene,
+                   march).launches == before + 1
+    full = torch.utils._pytree.tree_flatten(run(dev, False))[0]
+    cpu = torch.utils._pytree.tree_flatten(run("cpu", True))[0]
+    for a, b in zip(got, full):
+        assert torch.equal(a[active], b[active])
+    # status, and for the scene march the hit count (its last plane)
+    keys = [1] if march == "march_bh" else [2, -1]
+    same = active.cpu()
+    for k in keys:
+        _agree(got[k].cpu(), cpu[k])
+        same = same & (got[k].cpu() == cpu[k])
+    for a, c in zip(got, cpu):
+        assert torch.allclose(a.cpu()[same], c[same], rtol=1e-3, atol=1e-3)

@@ -168,15 +168,29 @@ def test_train_step_matches_jax(config5, jax_step):
 
 
 def test_loss_options_not_ported(config5):
-    """pass_atlas still raises; renderer="jnp" and backward="twin" are
-    ported since (held to JAX in test_make_loss_jnp_matches_jax and
-    tests/test_torch_adjoint.py): here they build and run."""
+    """Every option is ported since: pass_atlas (held to the loss without
+    it in test_pass_atlas_matches_built_atlas) raises the JAX package's
+    ValueErrors for optimized texels and the dense renderer, and runs;
+    renderer="jnp" and backward="twin" (held to JAX in
+    test_make_loss_jnp_matches_jax and tests/test_torch_adjoint.py) build
+    and run."""
     _, t, target = config5
     args = (t["scene"], t["cfg"], t["background"], t["tex"], 5, target)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="disk_slot=None"):
+        tinv.make_loss(*args, renderer="fast", pass_atlas=True)
+    with pytest.raises(ValueError, match="renderer='fast'"):
         tinv.make_loss(*args, pass_atlas=True)
     with pytest.raises(ValueError):
         tinv.make_loss(*args, renderer="nope")
+    from schwarzschild_tpu_torch import textures
+
+    tiny = dataclasses.replace(t["cfg"], width=8, height=6, max_steps=10)
+    atlas_loss = tinv.make_loss(t["scene"], tiny, t["background"], t["tex"],
+                                None, np.zeros((6, 8, 4), np.float32),
+                                renderer="fast", pass_atlas=True)
+    atlas = textures.build_atlas_cached(t["background"], t["tex"])
+    assert np.isfinite(float(atlas_loss(tinv.init_params(t["camera"], 0.7),
+                                        atlas)))
     small = dataclasses.replace(t["cfg"], width=8, height=6, max_steps=10)
     params = tinv.init_params(t["camera"], 0.7)
     loss = tinv.make_loss(t["scene"], small, t["background"], t["tex"], None,
@@ -188,6 +202,39 @@ def test_loss_options_not_ported(config5):
     assert f(t["camera"], t["background"].data, 1.0).shape == (6, 8, 4)
     with pytest.raises(ValueError):
         adjoint.make_diff_horizon_sky(small, backward="nope")
+
+
+def test_pass_atlas_matches_built_atlas(config5):
+    """make_loss(pass_atlas=True) with the atlas built once outside gives
+    the loss and the gradients of the loss that builds it inside, and
+    make_train_step carries the atlas through as its extra argument."""
+    _, t, _ = config5
+    from schwarzschild_tpu_torch import textures
+
+    small = dataclasses.replace(t["cfg"], width=16, height=12, max_steps=20)
+    target = np.random.default_rng(3).random((12, 16, 4)).astype(np.float32)
+    args = (t["scene"], small, t["background"], t["tex"], None, target)
+    built = tinv.make_loss(*args, renderer="fast")
+    passed = tinv.make_loss(*args, renderer="fast", pass_atlas=True)
+    atlas = textures.build_atlas_cached(t["background"], t["tex"])
+    params = tinv.init_params(t["camera"], 0.7)
+
+    def value_and_grads(loss_fn, *aux):
+        leaves = [x.clone().requires_grad_(True) for x in params
+                  if x is not None]
+        loss = loss_fn(tinv.InverseParams(*leaves, None), *aux)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    l0, g0 = value_and_grads(built)
+    l1, g1 = value_and_grads(passed, atlas)
+    np.testing.assert_allclose(float(l1), float(l0), rtol=1e-6)
+    for a, b in zip(g1, g0):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-9)
+    opt = tinv.default_optimizer()
+    _, _, loss = tinv.make_train_step(passed, opt)(params, opt.init(params),
+                                                   atlas)
+    np.testing.assert_allclose(float(loss), float(l0), rtol=1e-6)
 
 
 @pytest.mark.parametrize("decay_steps", [None, 3])

@@ -151,6 +151,8 @@ def frames(demo):
 
 @pytest.mark.parametrize("name", ["demo", "split_noise_crosshair_soft"])
 def test_render_fast_matches_pallas(demo, frames, name):
+    """The default frame (bilinear: the fetch-atlas levels, compacted
+    where the frame has the tiles for it) against JAX's default frame."""
     _, t = demo
     cfg, r_s, ref = frames[name]
     got = tks.render_fast(t["scene"], t["cam"], convert.render_config(cfg),
@@ -233,8 +235,21 @@ def test_render_fast_rejects_unported_options(demo, option, tmp_path):
         dense = sp.render(*args, test_ray=tr)
         assert ((img - dense).abs().amax(-1) < 2e-3).float().mean() >= 0.99
         return
-    with pytest.raises(NotImplementedError, match=option):
-        tks.render_fast(*args, **{option: True})
+    if option == "compact_slots":
+        # Ported since: compacted levels ("auto", the default, or per-pass
+        # capacities) give the full-frame levels' frame bit for bit.
+        full = tks.render_fast(*args, compact_slots=None)
+        for value in ("auto", (None, 16, 16, 16)):
+            assert torch.equal(tks.render_fast(*args, compact_slots=value),
+                               full)
+        return
+    # atlas: ported since; a prebuilt atlas gives the frame that the one
+    # render_fast builds gives.
+    from schwarzschild_tpu_torch import textures
+
+    atlas = textures.build_atlas(t["bg"], t["tex"])
+    assert torch.equal(tks.render_fast(*args, atlas=atlas),
+                       tks.render_fast(*args))
 
 
 def test_trilinear_filter_matches_pallas(demo):

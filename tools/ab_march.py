@@ -2,7 +2,7 @@
 of this repository in turns on one CUDA card.
 
     python3 tools/ab_march.py PATH_A PATH_B [PATH_C ...] [--pairs N]
-                              [--kernels scene,bwd,bh,dense]
+                              [--kernels scene,bwd,bh,dense,frames]
 
 N rounds (default 5); each round runs every checkout once, in the given
 order in even rounds and in reverse in odd ones (A, B, then B, A for two).
@@ -28,6 +28,14 @@ call (``*_ms``, host work included: CUDA-event medians of 20 calls):
     (``render.render``), its demo frame at 1280x720, 100 steps, forward
     only: the CUDA-event median of 5 frames after 1 and the device time
     of one frame (torch.profiler), as chip_smoke.py's dense phase.
+  * with ``frames``, the frames a user waits for, each through the
+    checkout's default path: the demo's render_fast at 1280x720 (CUDA-event
+    median of 10 after 2, device time, kernels and host synchronizations
+    of one frame), the same at the reference's default noise
+    (percent_black 0.75, hash), its gradient in r_s, cam.pos and the background's
+    texels (median of 5 after 1, peak memory), one config-4 flyby frame
+    (1920x1080, split screen, uint8 on the card; trajectory time 0.5) and
+    one config-5 "fast" training step (128x128, the disk texels free).
 ``--kernels`` names the ones to time (default scene, bwd, bh; the
 packing goes with scene).
 The rays, the timing and the card line are this repository's
@@ -66,7 +74,7 @@ built = _ext.build()
 res = {}
 dev = torch.device("cuda", 0)
 cfg = sp.RenderConfig(width=1280, height=720, percent_black=-1.0)
-if "scene" in only or "bwd" in only or "dense" in only:
+if any(k in only for k in ("scene", "bwd", "dense", "frames")):
     cam = configs.demo_camera(device=dev)
     sc = configs.demo_scene(device=dev)
     tex = configs.demo_texture_stack(device=dev)
@@ -129,6 +137,58 @@ if "dense" in only:
         res["dense_1280x720_ms"] = smoke.cuda_ms(dense, warmup=1, reps=5)
         res["dense_1280x720_device_ms"] = smoke.profile_device(
             dense, host=False)["device_ms"]
+if "frames" in only:
+    from schwarzschild_tpu_torch import camera, inverse
+    render = importlib.import_module("schwarzschild_tpu_torch.render")
+    bg = configs.background_texture(device=dev)
+    frame = lambda: sp.render_fast(sc, cam, cfg, bg, tex, 1.0, n_slots=4)
+    res["frame_1280x720_ms"] = smoke.cuda_ms(frame)
+    prof = smoke.profile_device(frame)
+    res["frame_1280x720_device_ms"] = prof["device_ms"]
+    res["frame_1280x720_kernels"] = prof.get("kernels")
+    res["frame_1280x720_syncs"] = smoke.count_syncs(frame)
+    ref_cfg = sp.RenderConfig(width=1280, height=720, percent_black=0.75,
+                              noise_mode="hash")
+    ref = lambda: sp.render_fast(sc, cam, ref_cfg, bg, tex, 1.0, n_slots=4)
+    res["ref_default_1280x720_ms"] = smoke.cuda_ms(ref)
+    prof = smoke.profile_device(ref)
+    res["ref_default_1280x720_device_ms"] = prof["device_ms"]
+    res["ref_default_1280x720_kernels"] = prof.get("kernels")
+    res["ref_default_1280x720_syncs"] = smoke.count_syncs(ref)
+    w = torch.rand((720, 1280, 4),
+                   generator=torch.Generator().manual_seed(0)).to(dev)
+
+    def grad():
+        pos = cam.pos.clone().requires_grad_(True)
+        r_s = torch.tensor(1.0, device=dev, requires_grad=True)
+        bg_d = bg.data.clone().requires_grad_(True)
+        img = sp.render_fast(sc, cam._replace(pos=pos), cfg,
+                             sp.Texture(bg_d), tex, r_s, overflow="ignore",
+                             differentiable=True)
+        return torch.autograd.grad((img * w).sum(), [r_s, pos, bg_d])
+
+    res["grad_1280x720_ms"] = smoke.cuda_ms(grad, warmup=1, reps=5)
+    res["grad_1280x720_peak_bytes"] = float(smoke.peak_bytes(grad)[1])
+    c4 = configs.config4_animation(n_frames=2, device=dev)
+    cam4 = camera.hyperbolic_trajectory(
+        camera.make_camera((0.0, 2.0, 15.0), device=dev), time=0.5,
+        **c4["trajectory"])
+    fly = lambda: render.to_uint8(sp.render_fast(
+        c4["scene"], cam4, c4["cfg"], c4["background"], c4["tex"], 1.0,
+        overflow="ignore"))
+    res["flyby_frame_1920x1080_ms"] = smoke.cuda_ms(fly, warmup=1, reps=5)
+    c5 = configs.config5_inverse(device=dev)
+    target = sp.render_fast(c5["scene"], c5["camera"], c5["cfg"],
+                            c5["background"], c5["tex"], 1.0,
+                            overflow="ignore")
+    opt = inverse.default_optimizer()
+    params = inverse.init_params(c5["camera"], 0.7, c5["tex"], 5)
+    state = opt.init(params)
+    step = inverse.make_train_step(inverse.make_loss(
+        c5["scene"], c5["cfg"], c5["background"], c5["tex"], 5, target,
+        renderer="fast"), opt)
+    res["config5_fast_step_ms"] = smoke.cuda_ms(lambda: step(params, state),
+                                                warmup=1, reps=5)
 print(json.dumps(res))
 """
 
