@@ -129,7 +129,15 @@ Phases, one printed line each (any failure raises, so the exit code is not
      bfloat16 textures against float32 ones (within one count on 98% of
      channels); the 720p gradient frame with frozen texels and with the
      background's texels (finite, one adjoint launch, time, peak memory)
-     and both against the CPU's at 64x36 by the gradient rule.
+     and both against the CPU's at 64x36 by the gradient rule;
+ 21. compose: config 3 at 3840x2160 (4 slots), compose_atlas through
+     compose_levels_kernel against its plain version
+     compose._compose_atlas_torch on the same march records: colour, open
+     and captured equal on every lane; no host synchronization in the
+     kernel's composition (count_syncs); the kernel's ms, device_ms and
+     plain_ms, the bytes its work needs and their bound; the render_fast
+     frame at that size with the counter reset just before: one launch;
+     the frame's time, and with the plain composition.
 Then one JSON line of per-kernel results, the card line again, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -289,12 +297,12 @@ def device_ms(fn, name, reps=20, tries=3):
 def wrapper_of(kernel_name):
     """The wrapper function (with its ``launches`` counter) that launches
     the CUDA kernel ``kernel_name``."""
-    from schwarzschild_tpu_torch import kernel, kernel_scene
+    from schwarzschild_tpu_torch import compose, kernel, kernel_scene
 
     return {"march_bh_kernel": kernel.march_bh,
             "march_scene_kernel": kernel_scene.march_scene,
-            "march_scene_bwd_kernel": kernel_scene.march_scene_bwd}[
-                kernel_name]
+            "march_scene_bwd_kernel": kernel_scene.march_scene_bwd,
+            "compose_levels_kernel": compose.compose_levels}[kernel_name]
 
 
 def rays(cam, W, H, dev):
@@ -460,16 +468,19 @@ def profile_device(fn, top=5, host=True):
 def ptxas_report(log_text):
     """{kernel: {"registers": r, "spill_stores": s, "spill_loads": l}}
     from nvcc -Xptxas -v output (empty when the library was not rebuilt);
-    a forward kernel's events instantiation is "<name><events>"."""
+    a forward kernel's events instantiation is "<name><events>", the
+    composition kernel's bfloat16 one "<name><bf16>"."""
     out, name = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = next((k for k in ("march_scene_bwd_kernel",
-                                     "march_scene_kernel", "march_bh_kernel")
+                                     "march_scene_kernel", "march_bh_kernel",
+                                     "compose_levels_kernel")
                          if k in m.group(1)), m.group(1))
-            if "ILb1E" in m.group(1):  # the <true> (events) instantiation
-                name += "<events>"
+            if "ILb1E" in m.group(1):  # the <true> instantiation
+                name += ("<bf16>" if name == "compose_levels_kernel"
+                         else "<events>")
             out[name] = {}
             continue
         if name is None:
@@ -1781,6 +1792,101 @@ def atlas_phase(sc, cam, bg, tex, c2, reset_launches, read_launches,
         seconds=time.perf_counter() - t_phase)
 
 
+def compose_phase(dev, size=(3840, 2160), n_slots=4):
+    """Phase 21 (see the module's docstring): config 3's composition at
+    ``size`` through compose_levels_kernel against its plain version, the
+    kernel's times and bound, and the main-path frame's launches.  Returns
+    the kernel's entry for the kernels line."""
+    import torch
+
+    import schwarzschild_tpu_torch as sp
+    from schwarzschild_tpu_torch import compose, configs, kernel
+    from schwarzschild_tpu_torch import kernel_scene, textures
+
+    c3 = configs.config3_full_scene(device=dev)
+    sc, cam, bg, tex = c3["scene"], c3["camera"], c3["background"], c3["tex"]
+    cfg = sp.RenderConfig(width=size[0], height=size[1], percent_black=-1.0)
+    px = kernel.pixel_masks(kernel.grid_planes(cam, cfg, dev), cfg)
+    march = kernel_scene.march_scene(px["origin"], px["direction"],
+                                     px["march_px"], 1.0, sc, cfg, n_slots,
+                                     tex)
+    r_s = torch.tensor(1.0, device=dev)
+    inputs = kernel_scene._composition_inputs(px, *march[:4], r_s, cfg)
+    atlas = textures.build_atlas_cached(bg, tex)
+    args = (sc, tex, atlas, r_s)
+
+    def fast():
+        return compose.compose_atlas(*args, **inputs)
+
+    def plain():
+        return compose._compose_atlas_torch(*args, **inputs)
+
+    got, ref = fast(), plain()
+    torch.cuda.synchronize()
+    equal = [torch.equal(a, b) for a, b in zip(got, ref)]
+    require(all(equal), f"compose_levels vs plain (color, open, captured): "
+            f"{equal}")
+    syncs = count_syncs(fast)
+    require(syncs == 0, f"compose_levels synchronized {syncs} times")
+
+    # The bytes the work needs: every lane's flags (open_init, needs_far,
+    # bg_hard), n_rec and slot 0's length, and the state it writes (colour,
+    # open, captured, bg_done); a ray's origin and direction where level 0
+    # intersects; the sky's uv and weight where a lane left open at level
+    # 0 fetches the sky; the later slots' lengths of the lanes still open;
+    # and the atlas quads of the fetching lanes, at most the whole atlas.
+    n = size[0] * size[1]
+    open0, n_rec = inputs["open_init"], inputs["n_rec"]
+    needs_far = inputs["needs_far"]
+    ray = ((march[3][0][2] > 0.0) | (needs_far & (n_rec == 0))) & open0
+    last = torch.where(needs_far, torch.clamp(n_rec, max=n_slots), n_rec - 1)
+    sky = got[1] & inputs["bg_hard"] & (last <= 0)
+    quads = int((ray | sky).sum())
+    n_ray, n_sky, n_open = int(ray.sum()), int(sky.sum()), int(got[1].sum())
+    atlas_bytes = atlas.data.numel() * atlas.data.element_size()
+    n_bytes = (n * (3 + 4 + 4 + 19) + n_ray * 24 + n_sky * 12
+               + n_open * 4 * (n_slots - 1) + min(quads * 64, atlas_bytes))
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+
+    ms = cuda_ms(fast)
+    dev_ms = device_ms(fast, "compose_levels_kernel")
+    plain_ms = cuda_ms(plain, warmup=1, reps=3)
+
+    def frame():
+        return sp.render_fast(sc, cam, cfg, bg, tex, 1.0, overflow="ignore")
+
+    frame()
+    torch.cuda.synchronize()
+    compose.compose_levels.launches = 0
+    frame()
+    torch.cuda.synchronize()
+    frame_launches = compose.compose_levels.launches
+    require(frame_launches == 1,
+            f"render_fast launched compose_levels {frame_launches} times")
+    frame_ms = cuda_ms(frame)
+    saved = kernel_scene.compose_atlas
+    kernel_scene.compose_atlas = compose._compose_atlas_torch
+    try:
+        frame_plain_ms = cuda_ms(frame, warmup=1, reps=3)
+    finally:
+        kernel_scene.compose_atlas = saved
+    log("compose", shape=[size[1], size[0]], n_slots=n_slots,
+        every_lane_equal=all(equal), host_syncs=syncs, lanes=n,
+        ray_lanes=n_ray, sky_lanes=n_sky, fetch_lanes=quads,
+        open_lanes=n_open, atlas_bytes=atlas_bytes, bytes=n_bytes,
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes (operations not counted)",
+        frame_launches=frame_launches, frame_ms=frame_ms,
+        frame_plain_compose_ms=frame_plain_ms)
+    return dict(name="compose_levels", route="cuda",
+                source="schwarzschild_tpu_torch/csrc/compose.cu",
+                replaces="schwarzschild_tpu/compose.py:210 (jnp, no Pallas "
+                         "kernel)",
+                launches=frame_launches, library_ms=None, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes")
+
+
 def main() -> int:
     import torch
 
@@ -2176,6 +2282,9 @@ def main() -> int:
     # marches, bfloat16 textures, the atlas gradient frames
     atlas_phase(sc, cam, bg, tex, c2, reset_launches, read_launches)
 
+    # 21. config 3's composition kernel at 4K, and its main-path frame
+    compose_entry = compose_phase(dev)
+
     log("total", seconds=time.perf_counter() - t_start)
     src = "schwarzschild_tpu_torch/csrc/march.cu"
     kernels = [
@@ -2191,6 +2300,7 @@ def main() -> int:
              replaces="schwarzschild_tpu/kernel_scene.py:787",
              launches=scene_launches["march_scene_bwd"], library_ms=None,
              **results["march_scene_bwd"]),
+        compose_entry,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,4 +1,4 @@
-"""Build and load the CUDA march kernels (csrc/march.cu).
+"""Build and load the CUDA kernels (csrc/march.cu, csrc/compose.cu).
 
 The sources compile with ``nvcc`` into a shared library with a plain C
 interface, loaded with ctypes: no PyTorch headers, so the build takes
@@ -33,9 +33,10 @@ BUILD_DIR = DEFAULT_BUILD_DIR
 # kernel's threads a block and its warp tile's rows (a warp marches
 # TILE_ROWS x 32 / TILE_ROWS pixels); the adjoint's threads a block and its
 # checkpoint interval (it saves a ray's core at every BWD_CKPT-th step);
-# the horizon kernel's threads a block and its warp tile's rows.
+# the horizon kernel's threads a block and its warp tile's rows; the
+# composition kernel's threads a block (one lane a thread).
 DESIGN = dict(SCENE_THREADS=128, TILE_ROWS=4, BWD_THREADS=64, BWD_CKPT=8,
-              BH_THREADS=256, BH_TILE_ROWS=4)
+              BH_THREADS=256, BH_TILE_ROWS=4, COMPOSE_THREADS=256)
 
 # -fmad=false: no a*b+c contraction, so the kernels round like the plain
 # versions and the JAX reference (see csrc/march_common.cuh).
@@ -46,8 +47,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# Every launch function ends with (n, r_s, max_steps, max_angle, u_f, far_r2,
-# stream).
+# Every march launch function ends with (n, r_s, max_steps, max_angle, u_f,
+# far_r2, stream).
 _MARCH = [_I, _F, _I, _F, _F, _F, _P]
 _SIGNATURES = {
     "march_bh_launch": [_P] * 3 + [_I] * 2 + [_P] * 4 + _MARCH,
@@ -55,6 +56,8 @@ _SIGNATURES = {
     "march_scene_launch": ([_P] * 4 + [_I] * 6 + [_F] + [_I] * 2
                            + [_P] * 9 + [_I] + _MARCH),
     "march_scene_bwd_launch": [_P] * 10 + [_I] + [_P] * 4 + _MARCH,
+    "compose_levels_launch": ([_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
+                               ctypes.c_longlong, _I, _P]),
 }
 
 

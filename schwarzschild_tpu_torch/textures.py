@@ -348,15 +348,40 @@ def build_atlas(background: Texture, stack: Optional[TextureStack] = None,
                       gpr=torch.as_tensor(gpr, device=dev))
 
 
-_ATLAS_CACHE = []  # (background data, stack data, versions, dtype, atlas)
-_ATLAS_CACHE_MAX = 4
+class SourceMemo:
+    """Values kept for their source tensors' identity and version counters:
+    ``get`` returns the value made before from the same tensors (and the
+    same ``key``) unless an in-place write has since moved a version, and
+    makes it anew otherwise.  The last ``size`` values are kept."""
+
+    def __init__(self, size: int = 4):
+        self.size, self.entries = size, []  # (sources, key, versions, value)
+
+    def get(self, sources, key, make):
+        sources = list(sources)
+        versions = [t._version for t in sources]
+        for i, (src, k, vers, value) in enumerate(self.entries):
+            if k == key and len(src) == len(sources) and all(
+                    a is b for a, b in zip(src, sources)):
+                del self.entries[i]
+                if vers == versions:
+                    self.entries.insert(0, (src, k, vers, value))
+                    return value
+                break  # a stale value of these sources: make it anew
+        value = make()
+        self.entries.insert(0, (sources, key, versions, value))
+        del self.entries[self.size:]
+        return value
+
+
+_ATLAS_CACHE = SourceMemo()
 
 
 def build_atlas_cached(background: Texture,
                        stack: Optional[TextureStack] = None,
                        dtype=torch.float32) -> FetchAtlas:
-    """:func:`build_atlas`, kept for the source tensors' identity and their
-    version counters: a frame of the textures seen before reuses their
+    """:func:`build_atlas`, kept for the source tensors (a
+    :class:`SourceMemo`): a frame of the textures seen before reuses their
     atlas, and an in-place write to a texture (which bumps its version)
     builds a new one.  Sources that require grad bypass the cache and
     build a differentiable atlas.  The last four atlases are kept."""
@@ -364,19 +389,13 @@ def build_atlas_cached(background: Texture,
     st_d = stack.data if stack is not None else None
     if bg_d.requires_grad or (st_d is not None and st_d.requires_grad):
         return build_atlas(background, stack, dtype)
-    versions = (bg_d._version, None if st_d is None else st_d._version)
-    for i, (b, s, vers, dt, atlas) in enumerate(_ATLAS_CACHE):
-        if b is bg_d and s is st_d and dt == dtype:
-            del _ATLAS_CACHE[i]
-            if vers == versions:
-                _ATLAS_CACHE.insert(0, (b, s, vers, dt, atlas))
-                return atlas
-            break  # a stale atlas of these sources: rebuild
-    with torch.no_grad():
-        atlas = build_atlas(background, stack, dtype)
-    _ATLAS_CACHE.insert(0, (bg_d, st_d, versions, dtype, atlas))
-    del _ATLAS_CACHE[_ATLAS_CACHE_MAX:]
-    return atlas
+
+    def make():
+        with torch.no_grad():
+            return build_atlas(background, stack, dtype)
+
+    return _ATLAS_CACHE.get([bg_d] if st_d is None else [bg_d, st_d], dtype,
+                            make)
 
 
 def _take(table, idx):

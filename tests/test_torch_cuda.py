@@ -652,3 +652,206 @@ def test_compact_march_on_card_equals_cpu(dev, march):
         same = same & (got[k].cpu() == cpu[k])
     for a, c in zip(got, cpu):
         assert torch.allclose(a.cpu()[same], c[same], rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The composition kernel (csrc/compose.cu) against its plain version,
+# compose._compose_atlas_torch, both on the card: the same march records in,
+# every lane's colour, open and captured equal, whichever tiles the plain
+# version's schedule runs its later levels on.
+# ---------------------------------------------------------------------------
+
+
+def _halved_alphas(sc, tex):
+    """Every material's and texel's alpha halved: rays cross several hits,
+    so composition runs levels past 0."""
+    m = sc.materials
+    color = m.color.clone()
+    color[:, 3] = 0.5
+    data = tex.data.clone()
+    data[..., 3] *= 0.5
+    return sc._replace(materials=m._replace(color=color)), \
+        tex._replace(data=data)
+
+
+def _shapes_scene(dev):
+    """Every primitive type: a plane (tiled texture window, no repeat), a
+    disk, a hollow disk, a cylinder, a rectangle, a box and a sphere, some
+    materials translucent, swapped or inverted uvs, one light."""
+    checker = sp.Material(texture_index=0, swap_uvs=True)
+    glass = sp.Material(color=(0.2, 0.6, 0.9, 0.5), specular=0.9)
+    inv = sp.Material(texture_index=1, invert_uv_x=True, invert_uv_y=True,
+                      double_sided_normals=False)
+    flip = sp.Material(texture_index=0, flip_normals=True)
+    objects = [
+        sp.Plane(pos=(0.0, -3.0, 0.0), material=checker,
+                 texture_offset=(0.1, 0.2), texture_size=(0.5, 0.5),
+                 repeat_texture=False),
+        sp.Disk(pos=(-4.0, 1.0, 2.0), radius=1.5, material=glass,
+                axes=geo.IDENTITY_AXES),
+        sp.HollowDisk(inner_radius=2.5, outer_radius=5.0, material=inv),
+        sp.LateralCylinder(pos=(3.0, -2.0, 1.0), height=3.0, radius=0.7,
+                           material=flip),
+        sp.Rectangle(pos=(-2.0, -1.0, -4.0), width=3.0, height=2.0,
+                     material=glass),
+        sp.Box(pos=(1.5, 1.0, 3.0), width=1.0, depth=1.2, height=0.8,
+               material=sp.Material(texture_index=1)),
+        sp.Sphere(pos=(-5.0, 2.0, -3.0), radius=1.0, material=glass),
+    ]
+    return sp.build_scene(objects, [sp.Light(pos=(5.0, 8.0, 6.0))],
+                          device=dev)
+
+
+def _compose_case(dev, case):
+    """(scene, stack, background, camera, cfg, test ray) of a named case."""
+    from schwarzschild_tpu_torch import features
+
+    bg = configs.background_texture(device=dev)
+    cam = configs.demo_camera(device=dev)
+    sc, tex = _scene_of("config3" if case == "config3" else "demo", dev)
+    soft, test_ray = 0.0, None
+    if case in ("translucent", "soft"):
+        sc, tex = _halved_alphas(sc, tex)
+        soft = 0.05 if case == "soft" else 0.0
+    elif case == "tubes":
+        test_ray = features.calculate_test_ray(cam_mod.look_at(
+            cam, torch.tensor((2.5, 0.0, 0.0), device=dev)), device=dev)
+    elif case == "shapes":
+        sc = _shapes_scene(dev)
+    elif case == "bf16":
+        bg, tex = sp.with_dtype(bg), sp.stack_with_dtype(tex)
+    cfg = sp.RenderConfig(width=256, height=64, percent_black=-1.0,
+                          horizon_softness=soft)
+    return sc, tex, bg, cam, cfg, test_ray
+
+
+def _compose_both(dev, case, compact=True, size=None, n_slots=4):
+    """compose_atlas on the card's march records through the kernel and
+    through the plain version (with its tile schedule's pending counts and
+    capacities); returns both results and the kernel's launches."""
+    from schwarzschild_tpu_torch import compose, textures
+
+    sc, tex, bg, cam, cfg, test_ray = _compose_case(dev, case)
+    if size is not None:
+        cfg = dataclasses.replace(cfg, width=size[0], height=size[1])
+    px = kernel.pixel_masks(kernel.grid_planes(cam, cfg, dev), cfg)
+    march = kernel_scene.march_scene(px["origin"], px["direction"],
+                                     px["march_px"], 1.0, sc, cfg, n_slots,
+                                     tex, test_ray=test_ray)
+    r_s = torch.tensor(1.0, device=dev)
+    inputs = kernel_scene._composition_inputs(px, *march[:4], r_s, cfg)
+    atlas = textures.build_atlas(
+        bg, tex, dtype=torch.bfloat16 if case == "bf16" else torch.float32)
+    args = (sc, tex, atlas, r_s)
+    before = compose.compose_levels.launches
+    got = compose.compose_atlas(*args, test_ray=test_ray, **inputs)
+    torch.cuda.synchronize()
+    launches = compose.compose_levels.launches - before
+    ref = compose._compose_atlas_torch(*args, test_ray=test_ray,
+                                       compact_tiles=compact,
+                                       return_pend=True, **inputs)
+    return got, ref, launches
+
+
+def _assert_compose_equal(got, ref):
+    for a, b in zip(got, ref[:3]):
+        assert a.shape == b.shape and torch.equal(a, b)
+    assert ref[1].dtype == torch.bool and (ref[0] != 0).any()
+
+
+@pytest.mark.parametrize("case", ["config3", "demo", "translucent", "soft",
+                                  "tubes", "shapes", "bf16"])
+def test_compose_kernel_equals_plain_on_every_lane(dev, case):
+    """Every case at 256 x 64: colour bit-equal, open and captured equal to
+    the plain version's tile schedule, from one launch a frame.  "bf16"
+    fetches from a bfloat16 atlas of bfloat16 textures."""
+    got, ref, launches = _compose_both(dev, case)
+    _assert_compose_equal(got, ref)
+    assert launches == 1
+    if case == "config3":
+        # Every lane's contributions end at level 0.
+        assert ref[3].tolist() == [0] * 5
+    if case in ("translucent", "soft"):
+        assert (ref[3] > 0).sum() >= 2  # levels past 0 ran
+
+
+def test_compose_kernel_equals_every_plain_schedule(dev):
+    """The translucent demo, whose plain version runs later levels on their
+    pending tiles and on the whole frame (more pending tiles than the
+    capacity), and without tiles (compact_tiles=False, and an untiled
+    120 x 50 frame): the kernel's one launch equals each; 40 slots (more
+    than 32 levels) too."""
+    fired = set()
+    for soft_case in ("translucent", "soft"):
+        got, ref, _ = _compose_both(dev, soft_case)
+        _assert_compose_equal(got, ref)
+        fired |= {("tiles" if 0 < n <= c else "frame" if n > c else "none")
+                  for n, c in zip(ref[3].tolist(), ref[4])}
+        full, ref_full, launches = _compose_both(dev, soft_case,
+                                                 compact=False)
+        _assert_compose_equal(full, ref_full)
+        assert launches == 1 and ref_full[4] == ()
+        for a, b in zip(got, full):
+            assert torch.equal(a, b)
+    assert {"tiles", "frame"} <= fired, fired
+    odd, ref_odd, _ = _compose_both(dev, "translucent", size=(120, 50))
+    _assert_compose_equal(odd, ref_odd)
+    deep, ref_deep, launches = _compose_both(dev, "translucent", n_slots=40)
+    _assert_compose_equal(deep, ref_deep)
+    assert launches == 1 and len(ref_deep[4]) == 41
+
+
+def test_compose_kernel_bypassed_when_grad_is_asked(dev):
+    """A frame whose r_s requires grad composes in torch (no launch) and
+    gets its gradient; the same frame under no_grad launches the kernel
+    and equals it."""
+    from schwarzschild_tpu_torch import compose
+
+    cfg = sp.RenderConfig(width=128, height=32, percent_black=-1.0)
+    args = [configs.demo_scene(device=dev), configs.demo_camera(device=dev),
+            cfg, configs.background_texture(device=dev),
+            configs.demo_texture_stack(device=dev)]
+    r_s = torch.tensor(1.0, device=dev, requires_grad=True)
+    before = compose.compose_levels.launches
+    img = sp.render_fast(*args, r_s, overflow="ignore")
+    assert compose.compose_levels.launches == before
+    (g,) = torch.autograd.grad(img.sum(), [r_s])
+    assert torch.isfinite(g)
+    with torch.no_grad():
+        fast = sp.render_fast(*args, r_s, overflow="ignore")
+    assert compose.compose_levels.launches == before + 1
+    assert torch.equal(fast, img.detach())
+
+
+def test_compose_kernel_never_reads_the_host(dev):
+    """The kernel's composition never synchronizes with the host (torch's
+    sync debug mode counts every synchronizing call; the plain version's
+    schedule reads the host once after each level that runs), and a
+    render_fast frame launches it once."""
+    import warnings
+
+    from schwarzschild_tpu_torch import compose, textures
+
+    sc, tex, bg, cam, cfg, _ = _compose_case(dev, "config3")
+    px = kernel.pixel_masks(kernel.grid_planes(cam, cfg, dev), cfg)
+    march = kernel_scene.march_scene(px["origin"], px["direction"],
+                                     px["march_px"], 1.0, sc, cfg, 4, tex)
+    r_s = torch.tensor(1.0, device=dev)
+    inputs = kernel_scene._composition_inputs(px, *march[:4], r_s, cfg)
+    atlas = textures.build_atlas(bg, tex)
+    compose.compose_atlas(sc, tex, atlas, r_s, **inputs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            compose.compose_atlas(sc, tex, atlas, r_s, **inputs)
+            with pytest.raises(ValueError, match="return_pend"):
+                compose.compose_atlas(sc, tex, atlas, r_s, return_pend=True,
+                                      **inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sum("synchroniz" in str(w.message) for w in caught) == 0
+    before = compose.compose_levels.launches
+    sp.render_fast(sc, cam, cfg, bg, tex, 1.0, overflow="ignore")
+    assert compose.compose_levels.launches == before + 1
